@@ -1,0 +1,277 @@
+"""The PyTorch port's codec against the JAX package's, on the CPU at N=16:
+container and coder bytes, the import boundary, and the whole
+compress -> decompress slice on one frame."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import upcc_tpu  # noqa: F401
+import jax
+import jax.numpy as jnp
+
+from upcc_tpu.codec import bitstream as JB
+from upcc_tpu.codec.codec import Codec as JCodec
+from upcc_tpu.coding import octree as JO
+from upcc_tpu.coding import rans as JR
+from upcc_tpu.data.synthetic import surface_cloud
+from upcc_tpu.eval.metrics import pc_metrics as j_metrics
+from upcc_tpu.models.unified import UnifiedModel as JModel
+from upcc_tpu.ops.sparse import from_points
+from upcc_tpu_torch.codec import bitstream as TB
+from upcc_tpu_torch.codec.codec import Codec as TCodec
+from upcc_tpu_torch.coding import octree as TO
+from upcc_tpu_torch.coding import rans as TR
+from upcc_tpu_torch.eval.metrics import pc_metrics as t_metrics
+from upcc_tpu_torch.models.entropy import gaussian as TG
+from upcc_tpu_torch.models.unified import UnifiedModel as TModel
+from upcc_tpu_torch.weights import params_from_jax
+
+torch.set_num_threads(2)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CFG = {
+    "max_batch": 8,
+    "g_a": {"C_in": 4, "N1": 16, "N2": 16, "N3": 16, "N4": 16},
+    "g_s": {"C_out": 3, "N1": 16, "N2": 16, "N3": 16, "N4": 16,
+            "min_one_child": True},
+    "entropy_model": {
+        "C_bottleneck": 16, "C_hyper_bottleneck": 24,
+        "quantization_mode": "ste", "inverse_rescaling": True,
+        "quantization_offset": True,
+    },
+}
+
+
+@pytest.mark.parametrize("name", ["rans.cpp", "octree.cpp", "voxelize.cpp"])
+def test_copied_cpp_is_byte_identical(name):
+    with open(os.path.join(ROOT, "upcc_tpu", "coding", "csrc", name), "rb") as f:
+        ref = f.read()
+    with open(os.path.join(ROOT, "upcc_tpu_torch", "coding", "csrc", name),
+              "rb") as f:
+        assert f.read() == ref
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "upcc_tpu_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_no_jax(path):
+    """The port imports neither jax/flax nor the JAX package (an AST scan:
+    this machine's site setup imports jax into every process, so
+    sys.modules cannot tell)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    banned = ("jax", "flax", "upcc_tpu")
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in banned, f"{path} imports {n}"
+
+
+def _blocks(rng):
+    return [{"origin": (0, -8, 16), "levels": 5, "n_y": 10, "n_z": 3,
+             "q": (0.25, 0.75), "k": [3, 7, 10], "coord_bytes": b"abc",
+             "y_bytes": b"defg", "z_bytes": b"z"},
+            {"origin": (128, 0, 0), "levels": 7, "n_y": 4, "n_z": 1,
+             "q": (0.5, 0.5), "k": [1, 2, 4], "coord_bytes": b"\x00\x01",
+             "y_bytes": b"yy", "z_bytes": b"",
+             "occ_bytes": (b"o1", b"o22", b"o333"),
+             "occ_tables": rng.integers(0, 1 << 16, (3, 5)).astype(np.uint16),
+             "color_affine": rng.standard_normal((3, 4)).astype(np.float32),
+             "color_resid": b"resid"}]
+
+
+def test_container_bytes_match_jax():
+    blocks = _blocks(np.random.default_rng(0))
+    data = TB.write_container(None, blocks, 2.0)
+    assert data == JB.write_container(None, blocks, 2.0)
+    tb, tsf = TB.read_container(data)
+    jb, jsf = JB.read_container(data)
+    assert tsf == jsf == 2.0
+    for a, b in zip(tb, jb):
+        assert a.keys() == b.keys()
+        for key in a:
+            if isinstance(a[key], np.ndarray):
+                np.testing.assert_array_equal(a[key], b[key])
+            else:
+                assert a[key] == b[key]
+
+
+@pytest.mark.parametrize("corrupt", ["flag", "version", "truncate", "magic"])
+def test_container_rejects_bad_streams(corrupt):
+    data = bytearray(TB.write_container(None, _blocks(
+        np.random.default_rng(1))[:1]))
+    if corrupt == "flag":
+        data[4 + 9 + 12 + 1 + 8 + 8] |= 0x40  # the first block's flags byte
+    elif corrupt == "version":
+        data[4] = 5
+    elif corrupt == "truncate":
+        data = data[:-3]
+    else:
+        data[0] = ord("X")
+    for reader in (TB.read_container, JB.read_container):
+        with pytest.raises(ValueError):
+            reader(bytes(data))
+
+
+def test_coders_match_jax_bytes():
+    rng = np.random.default_rng(2)
+    tables = TG.build_cdf_tables()
+    vals = np.round(rng.standard_normal(5000) * 6).astype(np.int32)
+    vals[::500] = 300  # escapes
+    idx = rng.integers(0, 64, 5000).astype(np.int32)
+    args = (tables["cdf"], tables["cdf_length"], tables["offset"])
+    tb = TR.encode_with_indexes(vals, idx, *args)
+    assert tb == JR.encode_with_indexes(vals, idx, *args)
+    np.testing.assert_array_equal(TR.decode_with_indexes(tb, idx, *args),
+                                  vals)
+    codes = np.unique(rng.integers(0, 8 ** 6, 3000)).astype(np.int64)
+    ob = TO.encode(codes, 6)
+    assert ob == JO.encode(codes, 6)
+    np.testing.assert_array_equal(TO.decode(ob, 6, len(codes) + 8), codes)
+
+
+def test_flagship_config_matches_yaml():
+    import yaml
+    from upcc_tpu_torch.weights import FLAGSHIP_CONFIG
+    with open(os.path.join(ROOT, "configs", "CVPR_inverse_scaling.yaml")) as f:
+        assert yaml.safe_load(f)["model"] == FLAGSHIP_CONFIG
+
+
+def test_metrics_match_jax():
+    rng = np.random.default_rng(3)
+    xyz, rgb = surface_cloud(rng, extent=48, n_target=800)
+    src = np.concatenate([xyz.astype(np.float64), rgb], 1)
+    rec = src[rng.random(len(src)) < 0.8].copy()
+    rec[:50, :3] += 1
+    rec[:, 3:] = np.round(rec[:, 3:] * 255 + rng.integers(-3, 4, (len(rec), 3))
+                          ) / 255
+    ref = j_metrics(src, rec, 63)
+    got = t_metrics(src, rec, 63)
+    for key in ("sym_psnr_mse", "sym_y_psnr", "sym_yuv_psnr"):
+        assert got[key] == pytest.approx(ref[key], rel=1e-12)
+
+
+@pytest.fixture(scope="module")
+def codecs():
+    model = JModel(CFG)
+    rng = np.random.default_rng(0)
+    xyz, rgb = surface_cloud(rng, extent=32, n_target=600)
+    st = from_points(jnp.zeros(len(xyz), jnp.int32), jnp.asarray(xyz),
+                     jnp.asarray(rgb), capacity=1024)
+    params = jax.jit(model.init)({"params": jax.random.PRNGKey(0),
+                                  "noise": jax.random.PRNGKey(1)}, st,
+                                 jnp.full((1, 2), 0.5, jnp.float32),
+                                 jnp.ones((1, 2), jnp.float32))["params"]
+    jc = JCodec(model, params)
+    jc.update()
+    tm = TModel(CFG)
+    tm.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params), tm))
+    tc = TCodec(tm, device="cpu")
+    tc.update()
+    return jc, tc
+
+
+@pytest.fixture(scope="module")
+def frame():
+    rng = np.random.default_rng(7)
+    parts = []
+    for off in (0, 128):
+        xyz, rgb = surface_cloud(rng, extent=64, n_target=1200)
+        parts.append(np.concatenate(
+            [(xyz + np.array([[off, 0, 0]])).astype(np.float32), rgb], 1))
+    return np.concatenate(parts)
+
+
+def test_codec_rejects_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TCodec(TModel(CFG), device="cuda")
+
+
+def test_codec_slice_matches_jax(codecs, frame):
+    """The whole slice on one 2-block frame at q=(0.4, 0.7): the port's own
+    encode -> decode is bit-exact (symbols, indexes, scales, means); its
+    container parses under the JAX reader; the decoded count equals JAX's
+    (both equal the transmitted k); bpp within 1% and D1 / Y-PSNR within
+    0.1 dB of the JAX codec's.  Whether a JAX-written stream decodes under
+    the port is printed, not asserted (its scale indexes come from floats
+    computed in another sum order)."""
+    jc, tc = codecs
+    q = (0.4, 0.7)
+    tc.debug, tc.debug_info = True, []
+    tdata = tc.compress(frame, q, block_size=128)
+    tout = tc.decompress(tdata)
+    tc.debug = False
+    enc = [d for d in tc.debug_info if d["side"] == "enc"]
+    dec = [d for d in tc.debug_info if d["side"] == "dec"]
+    assert len(enc) == len(dec) == 2
+    for e, d in zip(enc, dec):
+        for key in ("y_keys", "z_sym", "y_idx", "y_sym", "scales", "means"):
+            np.testing.assert_array_equal(e[key], d[key])
+
+    jblocks, _ = JB.read_container(tdata)
+    assert len(jblocks) == 2
+    assert tout.shape[0] == sum(b["k"][2] for b in jblocks)
+
+    jdata = jc.compress(frame, q, block_size=128)
+    jout = jc.decompress(jdata)
+    assert tout.shape[0] == jout.shape[0]
+    assert len(tdata) == pytest.approx(len(jdata), rel=0.01)
+    tm, jm = j_metrics(frame, tout, 191), j_metrics(frame, jout, 191)
+    assert abs(tm["sym_psnr_mse"] - jm["sym_psnr_mse"]) <= 0.1
+    assert abs(tm["sym_y_psnr"] - jm["sym_y_psnr"]) <= 0.1
+
+    try:
+        cross = tc.decompress(jdata)
+        same = cross.shape == jout.shape and np.array_equal(cross, jout)
+        print(f"\nJAX stream under the port: decoded {cross.shape[0]} points, "
+              f"identical to the JAX decode: {same}")
+    except Exception as exc:  # reported, not asserted
+        print(f"\nJAX stream under the port: failed ({exc!r})")
+    print(f"port {len(tdata)} B, JAX {len(jdata)} B; D1 {tm['sym_psnr_mse']:.3f}"
+          f" vs {jm['sym_psnr_mse']:.3f} dB; Y {tm['sym_y_psnr']:.3f} vs "
+          f"{jm['sym_y_psnr']:.3f} dB")
+
+
+def test_codec_stage_timer(codecs, frame):
+    """profile=True fills stage_times with every encode and decode stage
+    and leaves the stream unchanged."""
+    _, tc = codecs
+    plain = tc.compress(frame[:1200], (0.5, 0.5), block_size=128)
+    tc.profile, tc.stage_times = True, {}
+    try:
+        data = tc.compress(frame[:1200], (0.5, 0.5), block_size=128)
+        tc.decompress(data)
+    finally:
+        tc.profile = False
+    assert data == plain
+    assert set(tc.stage_times) == {
+        "enc.partition", "enc.voxelize", "enc.host_levels", "enc.analysis",
+        "enc.hyper", "enc.params", "enc.symbols", "enc.entropy_coding",
+        "dec.octree", "dec.rans_z", "dec.params", "dec.rans_y",
+        "dec.synthesis", "dec.fetch"}
+    assert all(t >= 0 for t in tc.stage_times.values())
+
+
+def test_decompress_rejects_unported_layers(codecs):
+    _, tc = codecs
+    b = _blocks(np.random.default_rng(4))[1]
+    with pytest.raises(NotImplementedError):
+        tc.decompress(TB.write_container(None, [b]))
