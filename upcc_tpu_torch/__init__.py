@@ -5,12 +5,16 @@ with PyTorch on an NVIDIA Hopper GPU.  The package mirrors the JAX
 package's layout (``ops/``, ``models/``, ``coding/``, ``codec/``) so each
 module's counterpart sits at the same relative path.  Plain tensor code is
 PyTorch; the three device ops the codec leans on — the 27-tap brick
-gather-GEMM, the exact per-batch top-k and the stable compaction — are
-hand-written CUDA kernels (``csrc/*.cu``), built by ``nvcc`` at first use
-(``kernels.py``).  On CPU tensors every kernel wrapper runs its plain
-PyTorch version instead, which is what the parity tests exercise.
+gather-GEMM, the exact per-batch top-k and the stable compaction — and the
+two gather probes are hand-written CUDA kernels (``csrc/*.cu``), built by
+``nvcc`` at first use (``kernels.py``).  On CPU tensors every kernel
+wrapper runs its plain PyTorch version instead, which is what the parity
+tests exercise.
 
-Entry point: ``upcc_tpu_torch.codec.Codec(model, device="cuda")``.
+Entry points: ``upcc_tpu_torch.codec.io.load_codec(exp_dir)`` or
+``upcc_tpu_torch.codec.codec.Codec(model, device="cuda")``; the file CLI
+``python3 -m upcc_tpu_torch.compress``; the probes
+``python3 -m upcc_tpu_torch.probes.<name>``.
 """
 
 import torch

@@ -8,27 +8,39 @@ params graph, code y with Gaussian rANS and the y coordinates with the
 octree coder, and write the v6 container.  decompress inverts it: octree
 and z decode, the same params graph, y decode, dequantization and g_s.
 
+geom="coded" replaces the ranked top-k selection by entropy-coded
+occupancy bits (codec/refine.py): three staged synthesis passes per side
+emit context bins, the host codes each candidate's true bit, and geometry
+decodes exactly.  compress_multi shares the q-independent half of the
+encode between operating points; compress_stream / decompress_stream keep
+several frames in flight on worker threads; a frame's groups run on two
+worker threads.  All of them give the bytes of the sequential calls.
+refit_colors attaches the signaled color layers (codec/color_affine.py,
+codec/color_resid.py) that decompress applies.
+
 Static capacities are the JAX package's (powers of two, the same group
-constants), so the two packages truncate identically.  Not ported yet:
-geom="coded", compress_multi, streaming, refit_colors and the color
-affine/residual layers (decompress rejects containers that carry them).
+constants), so the two packages truncate identically.  One device only:
+dispatching groups over several GPUs is not ported.
 """
 
 import contextlib
 import math
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..coding import occ as occ_coder
 from ..coding import octree, rans
 from ..models.entropy import gaussian
 from ..models.entropy.bottleneck import build_cdf_tables
 from ..ops import coords as C
 from ..ops import family as F
 from ..ops.sparse import SparseTensor, voxelize_host_np
-from . import bitstream
+from . import bitstream, color_affine, color_resid, refine
 
 MAX_GROUP = 63  # batch bits hold 6 bits; batch index 63 is reserved
 DEC_GROUP_PTS = 800_000
@@ -45,8 +57,8 @@ def _bucket(n, lo=512):
 def _chunk_decode_groups(blocks):
     """Split a container's block list into device decode groups: runs of
     equal q, at most MAX_GROUP blocks and bounded summed output and
-    level-1/level-0 counts (the JAX package's group rule, so group splits
-    match)."""
+    level-1/level-0 counts, never mixing coded-occupancy blocks with top-k
+    ones (the JAX package's group rule, so group splits match)."""
     items = []
     cur, pts, l1, l0 = [], 0, 0, 0
     for b in blocks:
@@ -54,7 +66,9 @@ def _chunk_decode_groups(blocks):
         if cur and (cur[-1]["q"] != b["q"] or len(cur) == MAX_GROUP
                     or pts + bp > DEC_GROUP_PTS
                     or l1 + b1 > DEC_GROUP_L1
-                    or l0 + b0 > DEC_GROUP_L0):
+                    or l0 + b0 > DEC_GROUP_L0
+                    or (cur[-1].get("occ_bytes") is None)
+                    != (b.get("occ_bytes") is None)):
             items.append(cur)
             cur, pts, l1, l0 = [], 0, 0, 0
         cur.append(b)
@@ -98,8 +112,12 @@ class Codec:
             torch.backends.cudnn.allow_tf32 = False
         self.model = model.to(self.device).eval()
         self.tables = None
+        # debug=True records each block's symbols and entropy parameters
+        # (debug_info) and each coded-occupancy stage's context bins
+        # (debug_bins) on both sides, and runs everything sequentially
         self.debug = False
         self.debug_info = []
+        self.debug_bins = []
         # profile=True: synchronize around each stage and add its wall
         # seconds to stage_times (the JAX codec's `profile` counterpart)
         self.profile = False
@@ -132,24 +150,172 @@ class Codec:
 
     # -- encode --------------------------------------------------------------
 
-    @torch.no_grad()
-    def compress(self, pointcloud, q, block_size=1024, scaling_factor=1.0):
-        """pointcloud: numpy [N, 6] (xyz int, rgb in [0, 1]); q: (q_g, q_a).
-        Returns the container bytes.  block_size <= 1024."""
+    def _check_encode(self, block_size, geom):
         if self.tables is None:
             raise RuntimeError("call update() first")
+        if geom not in ("topk", "coded"):
+            raise ValueError(f"geom must be 'topk' or 'coded', got {geom!r}")
         if block_size > 1024:
             # block-local Morton codes hold 3 x 10 coordinate bits
             raise ValueError("block_size > 1024 not supported")
+
+    @torch.no_grad()
+    def compress(self, pointcloud, q, block_size=1024, scaling_factor=1.0,
+                 geom="topk"):
+        """pointcloud: numpy [N, 6] (xyz int, rgb in [0, 1]); q: (q_g, q_a).
+        Returns the container bytes.  block_size <= 1024.
+
+        geom: "topk" (the lossy ranked selection) or "coded" — every
+        candidate's true occupancy bit is entropy-coded with the learned
+        logit as context, so geometry decodes exactly."""
+        self._check_encode(block_size, geom)
         with self._stage("enc.partition"):
             groups, levels = self._partition_blocks(pointcloud, block_size,
                                                     scaling_factor)
         qv = np.asarray(q, np.float32).reshape(1, 2)
-        blocks = []
-        for group, origins in groups:
-            shared = self._encode_shared(group, origins, levels)
-            blocks += self._encode_at_q(shared, qv)
+        results = self._map_groups(
+            lambda item: self._encode_at_q(
+                self._encode_shared(item[0], item[1], levels), qv, geom),
+            groups)
+        blocks = [b for r in results for b in r]
         return bitstream.write_container(None, blocks, scaling_factor)
+
+    @torch.no_grad()
+    def compress_multi(self, pointcloud, qs, block_size=1024,
+                       scaling_factor=1.0, geom="topk"):
+        """Multi-rate encode: one container per q in ``qs``, byte-identical
+        to ``[compress(pointcloud, q) for q in qs]``.  q conditions only
+        the gain and rescale nets after the analysis transform, so g_a, the
+        hyper-encoder, the octree coordinate streams and the z streams run
+        once; each further operating point pays the params graph, the
+        symbols and its y streams (and, for geom="coded", its occupancy
+        stages, whose context logits read the dequantized latents)."""
+        self._check_encode(block_size, geom)
+        groups, levels = self._partition_blocks(pointcloud, block_size,
+                                                scaling_factor)
+        shareds = self._map_groups(
+            lambda item: self._encode_shared(item[0], item[1], levels),
+            groups)
+        out = []
+        for q in qs:
+            qv = np.asarray(q, np.float32).reshape(1, 2)
+            results = self._map_groups(
+                lambda sh: self._encode_at_q(sh, qv, geom), shareds)
+            blocks = [b for r in results for b in r]
+            out.append(bitstream.write_container(None, blocks,
+                                                 scaling_factor))
+        return out
+
+    # -- worker threads --------------------------------------------------------
+
+    def _in_worker(self, fn, *args):
+        """Body of a worker thread: grad mode and the current CUDA device
+        are per thread, so each worker sets its own."""
+        ctx = torch.cuda.device(self.device) if self.device.type == "cuda" \
+            else contextlib.nullcontext()
+        with torch.no_grad(), ctx:
+            return fn(*args)
+
+    def _map_groups(self, fn, items):
+        """Two worker threads overlap one group's host entropy coding with
+        another's device passes.  Results keep input order, so containers
+        stay byte-identical to the sequential path.  debug and profile
+        recording need a deterministic stage order and force it."""
+        if len(items) > 1 and not (self.debug or self.profile):
+            with ThreadPoolExecutor(max_workers=2) as ex:
+                futs = [ex.submit(self._in_worker, fn, item)
+                        for item in items]
+                return [f.result() for f in futs]
+        return [fn(item) for item in items]
+
+    def _stream(self, items, fn, depth):
+        """Bounded-depth pipeline: up to ``depth`` frames in flight on
+        worker threads, results yielded in input order.  While one frame
+        runs host entropy coding, the next frame's device passes are
+        enqueued.  debug and profile force depth 1."""
+        if self.debug or self.profile:
+            depth = 1
+        depth = max(1, int(depth))
+        window = deque()
+        with ThreadPoolExecutor(max_workers=depth) as ex:
+            for item in items:
+                window.append(ex.submit(self._in_worker, fn, item))
+                if len(window) > depth:
+                    yield window.popleft().result()
+            while window:
+                yield window.popleft().result()
+
+    def compress_stream(self, frames, q, block_size=1024, scaling_factor=1.0,
+                        depth=2, geom="topk"):
+        """Pipelined encode of an iterable of frames; yields container
+        bytes in input order, byte-identical to sequential compress()."""
+        yield from self._stream(
+            frames, lambda f: self.compress(f, q, block_size=block_size,
+                                            scaling_factor=scaling_factor,
+                                            geom=geom),
+            depth)
+
+    def decompress_stream(self, containers, depth=2):
+        """Pipelined decode of an iterable of container byte strings;
+        yields [N, 6] frames in input order."""
+        yield from self._stream(containers, self.decompress, depth)
+
+    # -- coded-occupancy stages (lossless geometry) ----------------------------
+    # Encoder and decoder run the same function on the same shapes and
+    # dtypes at every stage, so the context bins agree bit for bit; bins
+    # that differ desync the occupancy streams.
+
+    def _refine_stage(self, y_keys, y_sym, dec, keeps, caps, lvl):
+        """Stage ``lvl``: levels below it select by the supplied keep
+        masks, level ``lvl`` emits the uint8 context bins of its logits."""
+        logits = self.model.decode_refine_device(
+            y_keys, y_sym, dec, ext_keep=tuple(keeps), num_levels=lvl + 1,
+            prune_caps=tuple(caps) + (8,) * (3 - len(caps)))
+        if self.debug and not bool(torch.isfinite(logits).all()):
+            raise FloatingPointError(f"non-finite occupancy logits at "
+                                     f"stage {lvl}")
+        return refine.bin_logits(logits)
+
+    def _coded_final(self, y_keys, y_sym, dec, keeps, caps):
+        """Final coded-mode pass: all three selections external, the color
+        head on the exact decoded voxel set."""
+        return self.model.decode_refine_device(
+            y_keys, y_sym, dec, ext_keep=tuple(keeps), num_levels=3,
+            prune_caps=tuple(caps), emit_last_logits=False)
+
+    def _occ_stages(self, side, y_keys, y_sym, dec, ycap, parents0, g,
+                    get_bits):
+        """Shared driver of the three staged occupancy passes.
+
+        parents0: sorted valid y keys (numpy).  get_bits(lvl, parents,
+        bins_np, block_slices) -> occupancy bool array: the encoder codes
+        the true bits and returns them, the decoder decodes them from the
+        streams.  Returns (keeps_dev, caps): the three keep masks on the
+        device and the selected levels' capacities."""
+        keeps_dev, caps = [], ()
+        parents = parents0
+        for lvl in range(3):
+            cap_in = ycap if lvl == 0 else caps[-1]
+            with self._stage(f"{side}.occ_bins{lvl}"):
+                bins = self._refine_stage(y_keys, y_sym, dec, keeps_dev,
+                                          caps, lvl)
+                bins_np = bins[:8 * len(parents)].cpu().numpy()
+            if self.debug:
+                self.debug_bins.append({"side": side, "stage": lvl,
+                                        "bins": bins_np.copy()})
+            pb = (parents >> C.BATCH_SHIFT).astype(np.int32)
+            counts = np.bincount(pb, minlength=g)[:g] * 8
+            ofs = np.concatenate([[0], np.cumsum(counts)])
+            slices = [slice(int(ofs[i]), int(ofs[i + 1])) for i in range(g)]
+            with self._stage(f"{side}.occ_coder"):
+                occ = get_bits(lvl, parents, bins_np, slices)
+            sel = refine.children_np(parents)[occ]
+            keep_pad = np.zeros(8 * cap_in, bool)
+            keep_pad[:len(occ)] = occ
+            keeps_dev.append(self._dev(keep_pad))
+            caps = caps + (_bucket(len(sel)),)
+            parents = sel
+        return keeps_dev, caps
 
     def _partition_blocks(self, pointcloud, block_size, scaling_factor):
         """Sort points into per-block groups of up to MAX_GROUP blocks;
@@ -240,14 +406,24 @@ class Codec:
         nz_b = np.bincount(z_batches, minlength=g)[:g]
         return {"levels": levels, "origins": origins, "enc": enc,
                 "hyp": hyp, "z_rn": z_rn, "y_keys_np": y_keys_np, "yv": yv,
-                "n_y": n_y, "z_caps": z_caps,
+                "n_y": n_y, "ycap": ycap, "z_caps": z_caps,
+                # exact level sets the coded-occupancy mode selects: the
+                # targets at strides 4, 2, 1 (sorted, batch-major)
+                "gt_levels": (lvl_keys[1], lvl_keys[0],
+                              keys_host[keys_host != C.SENTINEL]),
+                # q-independent per-block streams and counts, filled by
+                # the first q pass and shared by the later ones
+                "z_bytes": None, "coord_bytes": None, "k_all": None,
                 "hs_caps": hs_caps, "n_z": n_z, "ny_b": ny_b,
                 "y_ofs": np.concatenate([[0], np.cumsum(ny_b)]),
                 "nz_b": nz_b, "z_ofs": np.concatenate([[0], np.cumsum(nz_b)])}
 
-    def _encode_at_q(self, sh, qv):
+    def _encode_at_q(self, sh, qv, geom="topk"):
         """q-dependent half: the decoder's params graph, y symbols, and the
-        per-block rANS and octree streams."""
+        per-block rANS and octree streams (coordinate and z streams are
+        coded once and kept in ``sh`` across q passes).  geom="coded" also
+        codes every candidate's occupancy, closed loop: the context logits
+        read the dequantized latents, so these streams depend on q."""
         m = self.model
         enc, hyp = sh["enc"], sh["hyp"]
         n_y, n_z = sh["n_y"], sh["n_z"]
@@ -262,7 +438,24 @@ class Codec:
             z_vals = hyp["z_sym"][:n_z].cpu().numpy()
             y_vals = y_sym[:n_y].cpu().numpy()
             y_idx = dec["indexes"][:n_y].cpu().numpy().astype(np.int32)
-            k_all = enc["k"].cpu().numpy()
+            if sh["k_all"] is None:
+                sh["k_all"] = enc["k"].cpu().numpy()
+
+        occ_streams = None
+        if geom == "coded":
+            g = len(sh["origins"])
+            occ_streams = [[] for _ in range(g)]
+
+            def code_bits(lvl, parents, bins_np, slices):
+                occ = refine.occupancy_np(refine.children_np(parents),
+                                          sh["gt_levels"][lvl])
+                for i, sl in enumerate(slices):
+                    occ_streams[i].append(occ_coder.encode(occ[sl],
+                                                           bins_np[sl]))
+                return occ
+
+            self._occ_stages("enc", enc["y_keys"], y_sym, dec, sh["ycap"],
+                             y_keys_np[yv], g, code_bits)
 
         zch = hyp["z_sym"].shape[1]
         if self.debug:
@@ -271,9 +464,15 @@ class Codec:
 
         blocks = []
         with self._stage("enc.entropy_coding"):
+            fill_shared = sh["z_bytes"] is None
+            if fill_shared:
+                sh["z_bytes"], sh["coord_bytes"] = [], []
             for i, origin in enumerate(sh["origins"]):
                 blocks.append(self._code_block(sh, i, origin, qv, z_vals,
-                                               y_vals, y_idx, k_all, zch))
+                                               y_vals, y_idx, zch,
+                                               fill_shared))
+                if occ_streams:
+                    blocks[-1]["occ_bytes"] = tuple(occ_streams[i])
         if self.debug:
             for i in range(len(blocks)):
                 sl = slice(y_ofs[i], y_ofs[i + 1])
@@ -285,47 +484,98 @@ class Codec:
                     "scales": scales[sl].copy(), "means": means[sl].copy()})
         return blocks
 
-    def _code_block(self, sh, i, origin, qv, z_vals, y_vals, y_idx, k_all,
-                    zch):
+    def _code_block(self, sh, i, origin, qv, z_vals, y_vals, y_idx, zch,
+                    fill_shared):
         """rANS (z, y) and octree (y coordinates) streams of block i."""
         zt, yt = self.tables["z"], self.tables["y"]
         y_ofs, z_ofs = sh["y_ofs"], sh["z_ofs"]
-        zi = z_vals[z_ofs[i]:z_ofs[i + 1]].reshape(-1)
-        z_idx = np.tile(np.arange(zch, dtype=np.int32), int(sh["nz_b"][i]))
-        z_bytes = rans.encode_with_indexes(zi, z_idx, zt["cdf"],
-                                           zt["cdf_length"], zt["offset"])
+        if fill_shared:
+            zi = z_vals[z_ofs[i]:z_ofs[i + 1]].reshape(-1)
+            z_idx = np.tile(np.arange(zch, dtype=np.int32),
+                            int(sh["nz_b"][i]))
+            sh["z_bytes"].append(rans.encode_with_indexes(
+                zi, z_idx, zt["cdf"], zt["cdf_length"], zt["offset"]))
+            morton = sh["y_keys_np"][sh["yv"]][y_ofs[i]:y_ofs[i + 1]] \
+                & C.KEY_MASK
+            sh["coord_bytes"].append(octree.encode(morton, sh["levels"]))
         yi = y_vals[y_ofs[i]:y_ofs[i + 1]].reshape(-1)
         yidx_i = y_idx[y_ofs[i]:y_ofs[i + 1]].reshape(-1)
         y_bytes = rans.encode_with_indexes(yi, yidx_i, yt["cdf"],
                                            yt["cdf_length"], yt["offset"])
-        morton = sh["y_keys_np"][sh["yv"]][y_ofs[i]:y_ofs[i + 1]] & C.KEY_MASK
         return {"origin": origin, "levels": sh["levels"],
                 "n_y": int(sh["ny_b"][i]), "n_z": int(sh["nz_b"][i]),
                 "q": (float(qv[0, 0]), float(qv[0, 1])),
-                "k": k_all[:, i].tolist(),
-                "coord_bytes": octree.encode(morton, sh["levels"]),
-                "y_bytes": y_bytes, "z_bytes": z_bytes}
+                "k": sh["k_all"][:, i].tolist(),
+                "coord_bytes": sh["coord_bytes"][i],
+                "y_bytes": y_bytes, "z_bytes": sh["z_bytes"][i]}
 
     # -- decode --------------------------------------------------------------
 
     @torch.no_grad()
     def decompress(self, data):
-        """Returns numpy [N, 6] (xyz int, rgb in [0, 1] on the 8-bit grid)."""
+        """Returns numpy [N, 6] (xyz int, rgb in [0, 1] on the 8-bit grid,
+        then the container's signaled color corrections, if any)."""
         if self.tables is None:
             raise RuntimeError("call update() first")
         blocks, scaling_factor = bitstream.read_container(data)
-        for b in blocks:
-            for key in ("occ_bytes", "color_affine", "color_resid"):
-                if b.get(key) is not None:
-                    raise NotImplementedError(
-                        f"container carries {key}: coded geometry and the "
-                        "color layers are not ported")
-        outs = [self._decompress_group(blks)
-                for blks in _chunk_decode_groups(blocks)]
+        outs = self._map_groups(self._decompress_group,
+                                _chunk_decode_groups(blocks))
         x = np.concatenate(outs, axis=0)
         if scaling_factor != 1.0:
             x[:, :3] = x[:, :3] * scaling_factor
+        # frame-level signaled color corrections ride the first block: the
+        # affine, then the residual layer, in the order the encoder fitted
+        aff = blocks[0].get("color_affine") if blocks else None
+        if aff is not None and len(x):
+            x[:, 3:6] = color_affine.apply(x[:, 3:6], aff)
+        resid = blocks[0].get("color_resid") if blocks else None
+        if resid is not None and len(x):
+            x[:, 3:6] = color_resid.apply(x, resid)
         return x
+
+    def refit_colors(self, data, source_pc, rec=None, source_tree=None,
+                     resid_lam=0.0, fit_affine=True, resid_floor=0.0):
+        """Encoder-side color refit: fit the frame's signaled corrections
+        against the source and return ``(new container bytes, corrected
+        reconstruction)``; the reconstruction equals
+        ``decompress(new container bytes)``.  ``rec`` skips the decode when
+        the caller has already decoded ``data``.
+
+        Two layers, both optional and both counted in the new container's
+        length: the 48-byte affine (codec/color_affine.py) and, when
+        ``resid_lam`` > 0, the RAHT-coded residual layer
+        (codec/color_resid.py) fitted on the affine-corrected colors with
+        Lagrangian weight ``resid_lam``.  Geometry and every entropy-coded
+        payload stay byte-identical.  A container that already carries a
+        color layer is refused: ``rec`` would include that layer, and the
+        new fit would no longer describe what a decoder reconstructs."""
+        data = bytes(data)
+        blocks, scaling_factor = bitstream.read_container(data)
+        for key in ("color_affine", "color_resid"):
+            if blocks[0].get(key) is not None:
+                raise ValueError(f"container already carries {key}")
+        if rec is None:
+            rec = self.decompress(data)
+        src = np.asarray(source_pc)
+        out = np.array(rec, copy=True)
+        aff = payload = None
+        if fit_affine:
+            aff, _gain = color_affine.fit(out, src, source_tree=source_tree)
+        if aff is not None:
+            out[:, 3:6] = color_affine.apply(out[:, 3:6], aff)
+        if resid_lam > 0.0:
+            payload, corrected, _info = color_resid.fit(
+                out, src, resid_lam, source_tree=source_tree,
+                d_floor=resid_floor)
+            if payload is not None:
+                out[:, 3:6] = corrected
+        if aff is None and payload is None:
+            return data, out
+        if aff is not None:
+            blocks[0]["color_affine"] = aff
+        if payload is not None:
+            blocks[0]["color_resid"] = payload
+        return bitstream.write_container(None, blocks, scaling_factor), out
 
     def _decompress_group(self, blks):
         """Decode up to MAX_GROUP blocks in one batched device pass."""
@@ -405,6 +655,27 @@ class Codec:
                     "scales": scales[sl].copy(), "means": means[sl].copy()})
                 pos += b["n_y"]
                 zpos += b["n_z"]
+
+        if blks[0].get("occ_bytes") is not None:
+            # coded-occupancy container: each level's bits are decoded
+            # against the device-computed logit bins and fed back as the
+            # next stage's selection
+            y_sym_dev = self._dev(y_sym)
+
+            def decode_bits(lvl, parents, bins_np, slices):
+                occ = np.empty(8 * len(parents), bool)
+                for b, sl in zip(blks, slices):
+                    occ[sl] = occ_coder.decode(b["occ_bytes"][lvl],
+                                               bins_np[sl]).astype(bool)
+                return occ
+
+            keeps, ccaps = self._occ_stages(
+                "dec", y_keys, y_sym_dev, dec, ycap,
+                y_keys_np[y_keys_np != C.SENTINEL], g, decode_bits)
+            with self._stage("dec.synthesis"):
+                st = self._coded_final(y_keys, y_sym_dev, dec, keeps, ccaps)
+            with self._stage("dec.fetch"):
+                return self._fetch_points(blks, st)
 
         k = np.zeros((3, CODEC_MAX_BATCH), np.int32)
         for i, b in enumerate(blks):

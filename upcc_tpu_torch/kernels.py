@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -34,6 +35,8 @@ SOURCES = {
     "tap_gemm": "csrc/tap_gemm.cu",
     "topk_mask": "csrc/topk.cu",
     "compact": "csrc/compact.cu",
+    "tile_tapconv": "csrc/tile_tapconv.cu",
+    "window_gather_sum": "csrc/window_gather.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -62,24 +65,39 @@ _SIGNATURES = {
         # rows, src, n, m, row_bytes, out, stream
         "upcc_compact_rows": [_P, _P, _I64, _I64, _I64, _P, _P],
     },
+    "tile_tapconv": {
+        # x, idx, w, rows, k_in, k_out, taps, tile, is_f32, out, stream
+        "upcc_tile_tapconv": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                              ctypes.c_int, _P, _P],
+    },
+    "window_gather_sum": {
+        # win, idx, tiles, s_rows, k, taps, out, stream
+        "upcc_window_gather_sum": [_P, _P, _I64, _I64, _I64, _I64, _P, _P],
+    },
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}
 RECORD = None
 BUILD_LOG = {}
 _libs = {}
+# the codec runs groups and frames on worker threads: the counts and the
+# first-use build are shared by them
+_count_lock = threading.Lock()
+_build_lock = threading.Lock()
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def count_launch(name, *inputs):
     """Called by a wrapper right where it launches its kernel."""
-    LAUNCHES[name] += 1
-    if RECORD is not None:
-        RECORD.setdefault(name, []).append(inputs)
+    with _count_lock:
+        LAUNCHES[name] += 1
+        if RECORD is not None:
+            RECORD.setdefault(name, []).append(inputs)
 
 
 def _nvcc():
@@ -128,14 +146,18 @@ def build(names=None):
 
 def lib(name):
     """The loaded ctypes library of kernel ``name`` (built if missing)."""
-    if name not in _libs:
-        build([name])
-        handle = ctypes.CDLL(_lib_path(name)[1])
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(handle, fn).argtypes = argtypes
-            getattr(handle, fn).restype = ctypes.c_int
-        _libs[name] = handle
-    return _libs[name]
+    handle = _libs.get(name)
+    if handle is None:
+        with _build_lock:  # two threads may arrive at first use: build once
+            handle = _libs.get(name)
+            if handle is None:
+                build([name])
+                handle = ctypes.CDLL(_lib_path(name)[1])
+                for fn, argtypes in _SIGNATURES[name].items():
+                    getattr(handle, fn).argtypes = argtypes
+                    getattr(handle, fn).restype = ctypes.c_int
+                _libs[name] = handle
+    return handle
 
 
 def check(err, what):

@@ -8,8 +8,9 @@ previous level, each followed by an occupancy head and a per-batch top-k
 prune to the transmitted k (the finest level in grandparent layout,
 ``grand_finest``), then the 1x1 color conv.
 
-Not ported yet: region-candidate mode, the coded-occupancy hooks
-(``ext_keep``/``emit_last_logits``) and the oracle diagnostics.
+``ext_keep``/``emit_last_logits`` are the coded-occupancy hooks of
+``codec/refine.py``.  Not ported yet: region-candidate mode and the oracle
+diagnostics.
 """
 
 import torch
@@ -173,10 +174,14 @@ class SparseSynthesisTransform(nn.Module):
         return logits + bonus.reshape(-1)
 
     def forward(self, y: SparseTensor, k, prune_caps=None, y_struct=None,
-                num_levels=3):
+                num_levels=3, ext_keep=(), emit_last_logits=False):
         """y: latents (stride 8); k: int32[3, max_batch] target counts;
         prune_caps: static pruned-level capacities; y_struct: the params
         graph's stride-16 structure (g_s then performs no search).
+        ext_keep[lvl] (bool, candidate-aligned) replaces the top-k ranking
+        of that level by an externally decoded selection;
+        emit_last_logits stops at level num_levels-1 right after its
+        occupancy logits (no prune, no color head).
         Returns (x_hat, candidates, logits_list)."""
         base_cap = y.capacity
         dev = y.keys.device
@@ -244,8 +249,14 @@ class SparseSynthesisTransform(nn.Module):
                     feats=cfeats, stride=x.stride // 2)
                 cands.append(cand)
                 logits_list.append(logits)
-                keep = topk_mask(cand, self._prune_logits(logits, cvalid),
-                                 self._k_eff(k, lvl)) & cvalid
+                if emit_last_logits and lvl == num_levels - 1:
+                    break
+                if lvl < len(ext_keep):
+                    keep = ext_keep[lvl] & cvalid
+                else:
+                    keep = topk_mask(cand,
+                                     self._prune_logits(logits, cvalid),
+                                     self._k_eff(k, lvl)) & cvalid
                 pk, pf = compact(child_keys, keep, cand.feats,
                                  out_capacity=caps[lvl])
                 x = SparseTensor(keys=pk, feats=pf, stride=x.stride // 2)
@@ -266,8 +277,13 @@ class SparseSynthesisTransform(nn.Module):
             logits = head(cf, cfeats, cvalid)
             cands.append(cand)
             logits_list.append(logits)
-            keep = topk_mask(cand, self._prune_logits(logits, cvalid),
-                             self._k_eff(k, lvl)) & cvalid
+            if emit_last_logits and lvl == num_levels - 1:
+                break
+            if lvl < len(ext_keep):
+                keep = ext_keep[lvl] & cvalid
+            else:
+                keep = topk_mask(cand, self._prune_logits(logits, cvalid),
+                                 self._k_eff(k, lvl)) & cvalid
             # prune with parent links carried through the compaction
             pk, pf, ppar, pslot = compact(child_keys, keep, cand.feats,
                                           cf.point_parent, cf.point_slot,
@@ -287,7 +303,7 @@ class SparseSynthesisTransform(nn.Module):
                 igdn = self.igdn2 if lvl == 0 else self.igdn3
                 x = x.replace(feats=igdn(x.feats))
 
-        if num_levels == 3:
+        if num_levels == 3 and not emit_last_logits:
             f = self.color_conv(x.feats, x.valid)
             x = x.replace(feats=f)
         return x, cands, logits_list

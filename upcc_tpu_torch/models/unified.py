@@ -2,8 +2,8 @@
 
 The device methods the codec calls: the analysis transform, the hyper
 analysis with z rounding, the decoder's params graph (run by the encoder
-too), y symbol extraction, and dequantization + synthesis.  The training
-forward is not ported.
+too), y symbol extraction, dequantization + synthesis, and the staged synthesis of
+the coded-occupancy mode.  The training forward is not ported.
 """
 
 from typing import Any, Dict
@@ -82,4 +82,30 @@ class UnifiedModel(nn.Module):
         x_hat, _, _ = self.g_s(y_hat, k, prune_caps=prune_caps,
                                y_struct=dec.get("y_struct"),
                                num_levels=num_levels)
+        return x_hat
+
+    def decode_refine_device(self, y_keys, y_sym, dec, ext_keep=(),
+                             num_levels=3, prune_caps=None,
+                             emit_last_logits=True):
+        """Staged synthesis for the coded-occupancy (lossless-geometry)
+        mode (codec/refine.py).  Levels < len(ext_keep) select by the
+        externally decoded occupancy masks; with ``emit_last_logits`` the
+        pass stops at level ``num_levels-1`` and returns that level's
+        occupancy logits (candidate-aligned) for host entropy coding.
+        With ``emit_last_logits=False`` (all three masks supplied) it
+        returns the final colored reconstruction instead.
+
+        Encoder and decoder must call this with identical shapes and
+        dtypes at every stage: the context bins derived from the logits
+        have to agree bit for bit, or the occupancy streams desync."""
+        y_hat_feats = self.entropy_model.dequantize_y_device(y_sym, dec)
+        y_hat = SparseTensor(keys=y_keys, feats=y_hat_feats, stride=8)
+        kz = torch.zeros((3, self.config.get("max_batch", 8)),
+                         dtype=torch.int32, device=y_keys.device)
+        x_hat, _, logits_list = self.g_s(
+            y_hat, kz, prune_caps=prune_caps, y_struct=dec.get("y_struct"),
+            num_levels=num_levels, ext_keep=ext_keep,
+            emit_last_logits=emit_last_logits)
+        if emit_last_logits:
+            return logits_list[num_levels - 1]
         return x_hat

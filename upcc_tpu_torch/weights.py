@@ -10,7 +10,10 @@ shifting their 16 bits into the high half of a float32, which is exact.
 ``params_from_jax`` maps a flax parameter tree onto the port's modules:
 the port names its parameters by the flax paths (``g_a.conv1.w``,
 ``entropy_model.scale_nn.Dense_0.kernel``, ...), every leaf must be
-consumed and every module parameter supplied, with equal shapes.
+consumed and every module parameter supplied, with equal shapes.  Covered:
+g_a, g_s and the entropy model of ``UnifiedModel`` — which is everything
+the codec's serving surface runs (coded geometry, simulcast, streaming and
+the color layers add no parameter).
 """
 
 import struct
