@@ -8,19 +8,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi); build the CUDA kernels
      (one nvcc per source, in parallel) and print the build seconds;
   2. every kernel against its plain PyTorch version on edge-case inputs:
-     K1 tap_gemm at each caller layout (f32 tolerance below), K2 topk_mask
-     and K3 compact (exact), P1 tile_tapconv in both operand types
-     (tolerances at P1_TOL) and P2 window_gather_sum (exact);
+     K1 tap_gemm through its prepared weights at each caller layout, held
+     against the dense plain version on the dense stack (f32 tolerance
+     below; ragged and short row counts, unread taps, nothing read, indices
+     beyond the source, and rows placed elsewhere in a larger call being
+     bit-equal), K2 topk_mask and K3 compact (exact), P1 tile_tapconv in
+     both operand types (tolerances at P1_TOL) and P2 window_gather_sum
+     (exact);
   3. the codec's main path at full width: the committed epoch-193 flagship
      weights, the vox10-scale synthetic frame (760k points), compress ->
      decompress at q=(0.5, 0.5), block 1024 (once recording every kernel
      call's inputs, once timed with the launch counts zeroed just before),
      then block 512 (an 8-block group); checks encoder/decoder bit-exactness,
-     the decoded count against the transmitted k, and that every kernel
-     launched;
-  4. every recorded main-path kernel call against its plain version, timed
-     (kernel, plain, one library call as yardstick) beside its roofline
-     bound;
+     the decoded count against the transmitted k, the launches per frame
+     (K1 19, K2 3, K3 3; 61 / 0 / 9 on the coded path) and that no conv
+     prepared its weights during the frame (update() did);
+  4. every recorded main-path kernel call against its plain version (K1:
+     the prepared weights the codec used against the dense stack built from
+     the layer's parameter), timed (kernel, plain, one library call or call
+     sequence doing the same work as yardstick) beside its roofline bound;
   5. the two probe entry points (upcc_tpu_torch.probes) at their published
      shapes, launch counts zeroed just before; then P1 and P2 on the same
      full arrays against their plain versions, timed beside a library call
@@ -55,6 +61,7 @@ from upcc_tpu_torch.codec import bitstream
 from upcc_tpu_torch.codec.codec import Codec
 from upcc_tpu_torch.data.synthetic import surface_cloud
 from upcc_tpu_torch.eval.metrics import pc_metrics
+from upcc_tpu_torch.models.layers import _TapConv
 from upcc_tpu_torch.models.unified import UnifiedModel
 from upcc_tpu_torch.ops import coords as C
 from upcc_tpu_torch.ops import family as F
@@ -113,53 +120,94 @@ def bound_ms(nbytes, flops, peak=PEAK_BF16):
 # -- phase 2: kernels on edge-case inputs ------------------------------------
 
 def check_tap_gemm(gen):
+    """K1 through its prepared path (block list from the tap tables)
+    against the dense plain version on the dense stack, per call shape."""
     dev = "cuda"
-
-    def case(name, rows, n_src, w):
-        idx = torch.randint(0, n_src + 64, (rows, 27), generator=gen,
-                            device=dev, dtype=torch.int32)  # some clipped
-        ok = torch.rand((rows, 27), generator=gen, device=dev) < 0.8
-        ok[: rows // 16] = False  # rows that read nothing
-        flat = torch.randn((n_src, w.shape[1]), generator=gen,
-                           device=dev).to(torch.bfloat16)
-        w = w.to(torch.bfloat16).contiguous()
-        got = F.tap_gemm(flat, idx, ok, w)
-        ref = F.tap_gemm_plain(flat, idx, ok, w)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        tol = 1e-3 * float(ref.abs().max()) + 1e-5
-        print(f"[k1] {name}: rows={rows} K_in={w.shape[1]} "
-              f"K_out={w.shape[2]} max_abs_err={err:.3e} tol={tol:.3e}",
-              flush=True)
-        assert err <= tol, f"tap_gemm {name} disagrees with its plain version"
+    bf = torch.bfloat16
 
     def rw(taps, cin, cout):
         return torch.randn((taps, cin, cout), generator=gen, device=dev) \
             * (1.0 / (taps * cin)) ** 0.5
 
-    case("family_conv k3 1024->512", 3000, 2500,
-         F._expanded_weights(rw(27, 128, 64), 3))
-    case("family_conv k5 1024->1024", 2048, 2048,
-         F._expanded_weights(rw(125, 128, 128), 5))
-    case("family_conv k3 512->8", 1500, 1200,
-         F._expanded_weights(rw(27, 64, 1), 3))
-    case("family_conv k3 1536->2048 (hs3)", 1024, 4096,
-         F._expanded_weights(rw(27, 192, 256), 3))
-    case("family_down_conv k5 1024->128", 2000, 2000,
-         F._gather_taps(rw(125, 128, 128), F._table(
-             "down_tap", torch.device(dev), 5)).reshape(27, 1024, 128))
-    case("family_down_conv k3 1536->192", 777, 900,
-         F._gather_taps(rw(27, 192, 192), F._table(
-             "down_tap", torch.device(dev), 3)).reshape(27, 1536, 192))
-    wt = F._gather_taps(rw(125, 128, 128), F._table("transpose_tap",
-                                                   torch.device(dev)))
-    case("family_transpose_up k5 128->1024", 4100, 4000,
-         wt.permute(0, 2, 1, 3).reshape(27, 128, 1024))
-    for mode, ks, cin, cout in (("down", 5, 4, 128), ("transpose", 5, 128, 32),
-                                ("conv", 3, 32, 16), ("conv", 3, 16, 1)):
-        w = F.grand_expand_weights(rw(ks ** 3, cin, cout), ks, mode,
-                                   torch.float32)
-        case(f"grand {mode} {w.shape[1]}->{w.shape[2]}", 1000, 1000, w)
+    def inputs(rows, n_src, k_in, p_ok=0.8):
+        idx = torch.randint(0, n_src + 64, (rows, 27), generator=gen,
+                            device=dev, dtype=torch.int32)  # some clipped
+        ok = torch.rand((rows, 27), generator=gen, device=dev) < p_ok
+        ok[: rows // 16] = False  # rows that read nothing
+        flat = torch.randn((n_src, k_in), generator=gen, device=dev).to(bf)
+        return flat, idx, ok
+
+    def compare(name, flat, idx, ok, plan, dense):
+        got = F.tap_gemm(flat, idx, ok, plan)
+        ref = F.tap_gemm_plain(flat, idx, ok, dense)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = 1e-3 * float(ref.abs().max()) + 1e-5
+        print(f"[k1] {name}: rows={idx.shape[0]} K_in={dense.shape[1]} "
+              f"K_out={dense.shape[2]} BN={plan.bn} "
+              f"listed_blocks={plan.n_blocks} "
+              f"max_abs_err={err:.3e} tol={tol:.3e}", flush=True)
+        assert err <= tol, f"tap_gemm {name} disagrees with its plain version"
+        return got
+
+    def case(name, rows, n_src, kind, ks, cin, cout, edit=None):
+        w = rw(ks ** 3, cin, cout)
+        plan = F.prepare_taps(w, kind, ks, bf)
+        dense = F._dense_taps(w, kind, ks).to(bf)
+        flat, idx, ok = inputs(rows, n_src, dense.shape[1])
+        if edit is not None:
+            edit(idx, ok)
+        compare(f"{kind} k{ks} {name}", flat, idx, ok, plan, dense)
+        return flat, idx, ok, plan, dense
+
+    case("1024->512", 3000, 2500, "conv", 3, 128, 64)
+    case("1024->1024", 2048, 2048, "conv", 5, 128, 128)
+    case("512->8 (K_out 8)", 1500, 1200, "conv", 3, 64, 1)
+    case("1536->2048 (hs3)", 1024, 4096, "conv", 3, 192, 256)
+    case("1536->1536 (C 192)", 777, 900, "conv", 3, 192, 192)
+    case("1024->128", 2000, 2000, "down", 5, 128, 128)
+    case("1536->192 (C 192), rows < tile", 50, 900, "down", 3, 192, 192)
+    case("128->1024", 4100, 4000, "transpose", 5, 128, 128)
+    case("256->1024 (cin 4)", 1000, 1000, "grand_down", 5, 4, 128)
+    case("1024->2048 (cout 32)", 1000, 1000, "grand_transpose", 5, 128, 32)
+    case("2048->1024 (cout 16)", 1001, 1000, "grand_conv", 3, 32, 16)
+    case("1024->64 (cout 1)", 1000, 1000, "grand_conv", 3, 16, 1)
+
+    def unread_taps(idx, ok):
+        ok[:, 20:] = False       # taps nobody reads
+        ok[:256, 3:11] = False   # whole tiles that skip taps 3..10
+        ok[300:310, 5] = True
+    case("tiles with unread taps", 1000, 800, "conv", 3, 128, 64,
+         edit=unread_taps)
+
+    def nothing_read(idx, ok):
+        ok[:] = False
+    flat, idx, ok, plan, dense = case("all ok = 0", 333, 500, "conv", 3, 64,
+                                      64, edit=nothing_read)
+    assert not F.tap_gemm(flat, idx, ok, plan).any()
+
+    def far_indices(idx, ok):
+        idx[::3] = 2 ** 31 - 1   # far beyond n_src: clipped to the last row
+    case("idx beyond n_src", 640, 100, "conv", 5, 128, 128, edit=far_indices)
+
+    # placement invariance: the same logical rows alone and inside a larger
+    # call, shifted by a non-multiple of the row tile, are bit-equal
+    for kind, ks, cin, cout, rows in (("conv", 5, 128, 128, 1000),
+                                      ("grand_conv", 3, 32, 16, 333),
+                                      ("down", 3, 192, 192, 77)):
+        w = rw(ks ** 3, cin, cout)
+        plan = F.prepare_taps(w, kind, ks, bf)
+        flat, idx, ok = inputs(rows, 3000, plan.k_in)
+        alone = F.tap_gemm(flat, idx, ok, plan)
+        _, idx2, ok2 = inputs(3 * rows + 17, 3000, plan.k_in, p_ok=0.4)
+        at = rows + 5
+        idx2[at:at + rows], ok2[at:at + rows] = idx, ok
+        inside = F.tap_gemm(flat, idx2, ok2, plan)[at:at + rows]
+        torch.cuda.synchronize()
+        same = torch.equal(alone.view(torch.int32), inside.view(torch.int32))
+        print(f"[k1] placement {kind} k{ks}: rows={rows} inside "
+              f"{3 * rows + 17} at {at}: bit-equal={same}", flush=True)
+        assert same, "tap_gemm depends on where a row sits in its call"
 
 
 def check_topk(gen):
@@ -272,7 +320,8 @@ def check_window_gather(gen):
 
 # -- phase 4: recorded main-path calls ---------------------------------------
 
-def measure_recorded(record):
+def measure_recorded(record, layer_of):
+    """layer_of: id(prepared plan) -> (layer, call shape) it was made for."""
     rows = {}
 
     def add(name, err, t_k, t_p, t_l, nbytes, flops):
@@ -289,15 +338,19 @@ def measure_recorded(record):
         r["t_bytes"] += nbytes / PEAK_BYTES * 1e3
         r["t_ops"] += flops / PEAK_BF16 * 1e3
 
-    for flat, idx, ok, w in record.get("tap_gemm", []):
-        got = F.tap_gemm(flat, idx, ok, w)
+    for flat, idx, ok, plan in record.get("tap_gemm", []):
+        # the layer's dense stack from its parameter, not via the plan
+        layer, kind = layer_of[id(plan)]
+        w = F._dense_taps(layer.w.detach(), kind, layer.kernel_size) \
+            .to(torch.bfloat16)
+        got = F.tap_gemm(flat, idx, ok, plan)
         ref = F.tap_gemm_plain(flat, idx, ok, w)
         err = float((got - ref).abs().max())
         tol = 1e-3 * float(ref.abs().max()) + 1e-5
         assert err <= tol, "tap_gemm disagrees with its plain version on " \
             "a main-path call"
         del got, ref
-        t_k = cuda_time(lambda: F.tap_gemm(flat, idx, ok, w), 5)
+        t_k = cuda_time(lambda: F.tap_gemm(flat, idx, ok, plan), 5)
         t_p = cuda_time(lambda: F.tap_gemm_plain(flat, idx, ok, w), 2)
         rows_, taps = idx.shape
         stack = (flat[idx.clamp(max=flat.shape[0] - 1).long()]
@@ -310,6 +363,7 @@ def measure_recorded(record):
         nbytes = (flat.numel() * 2 + w.numel() * 2 + idx.numel() * 4
                   + ok.numel() + rows_ * w.shape[-1] * 4)
         print(f"[k1 main] rows={rows_} K_in={w.shape[1]} K_out={w.shape[2]} "
+              f"BN={plan.bn} listed_blocks={plan.n_blocks} "
               f"err={err:.3e} kernel={t_k:.3f} ms plain={t_p:.3f} ms "
               f"matmul={t_l:.3f} ms bound={bound_ms(nbytes, flops)[0]:.4f} ms",
               flush=True)
@@ -345,20 +399,26 @@ def measure_recorded(record):
                                         out_capacity=m), 10)
         t_p = cuda_time(lambda: compact_plain(keys, keep, *arrays,
                                               out_capacity=m), 3)
-        t_l = cuda_time(lambda: keys[keep], 10)
+        # the same work in library calls: keys and every payload, kept
+        # rows only, truncated at m
+        t_l = cuda_time(lambda: [a[keep][:m] for a in (keys, *arrays)], 10)
         n = keys.shape[0]
         row = sum(a[0].numel() * a.element_size() for a in arrays) if n else 0
         # the function needs keep, the kept rows (up to m) and the m outputs
         kept = min(int(keep.sum()), m)
         nbytes = n + kept * (8 + row) + m * (8 + row)
         print(f"[k3 main] n={n} m={m} payloads={len(arrays)} "
-              f"kernel={t_k:.3f} ms plain={t_p:.3f} ms keys[keep]={t_l:.3f} "
-              f"ms bound={bound_ms(nbytes, 0)[0]:.4f} ms", flush=True)
+              f"kernel={t_k:.3f} ms plain={t_p:.3f} ms a[keep][:m] for keys "
+              f"and payloads={t_l:.3f} ms "
+              f"bound={bound_ms(nbytes, 0)[0]:.4f} ms", flush=True)
         add("compact", 0.0, t_k, t_p, t_l, nbytes, 0)
     return rows
 
 
 CODEC_KERNELS = ("tap_gemm", "topk_mask", "compact")
+# launches per frame (encode + decode), top-k and coded geometry
+TOPK_LAUNCHES = {"tap_gemm": 19, "topk_mask": 3, "compact": 3}
+CODED_LAUNCHES = {"tap_gemm": 61, "topk_mask": 0, "compact": 9}
 
 
 def codec_launches():
@@ -396,6 +456,17 @@ def run_probes():
         stack = x[base + idx.long()].reshape(n_rows, -1)
         w2 = w.reshape(-1, w.shape[-1])
         t_l = cuda_time(lambda: torch.matmul(stack, w2), 3)
+        lib = f"matmul(pre-gathered stack, same type)={t_l:.3f} ms"
+        if dtype == torch.float32:
+            # the kernel rounds to TF32: the like-for-like library call is
+            # the matmul with TF32 allowed (around this call only)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                t_l32, t_l = t_l, cuda_time(lambda: torch.matmul(stack, w2), 3)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            lib = (f"matmul(pre-gathered stack, allow_tf32)={t_l:.3f} ms "
+                   f"(full f32: {t_l32:.3f} ms)")
         del stack
         size = x.element_size()
         flops = 2 * n_rows * idx.shape[1] * w.shape[1] * w.shape[2]
@@ -405,8 +476,8 @@ def run_probes():
         b, by = bound_ms(nbytes, flops, peak)
         print(f"[p1 probe] {str(dtype).split('.')[-1]} rows={n_rows} "
               f"tile={tile} err={err:.3e} tol={tol:.3e} kernel={t_k:.3f} ms "
-              f"plain={t_p:.3f} ms matmul(pre-gathered stack, same type)="
-              f"{t_l:.3f} ms bound={b:.4f} ms by {by}", flush=True)
+              f"plain={t_p:.3f} ms {lib} bound={b:.4f} ms by {by}",
+              flush=True)
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += t_k
         r["plain_ms"] += t_p
@@ -489,6 +560,7 @@ def run_coded(codec, frame, q, block_size):
         "the coded path is not deterministic"
     for name in ("tap_gemm", "compact"):
         assert launches[name] > 0, f"{name} was not launched on the coded path"
+    assert launches == CODED_LAUNCHES, (launches, CODED_LAUNCHES)
     blocks, _ = bitstream.read_container(data)
     occ = sum(len(o) for b in blocks for o in b["occ_bytes"])
     met = pc_metrics(frame, rec, 1023)
@@ -619,7 +691,15 @@ def main():
     model = load_weights(UnifiedModel(FLAGSHIP_CONFIG), WEIGHTS)
     codec = Codec(model, device="cuda")
     codec.update()
+    torch.cuda.synchronize()
     print(f"[codec] weights + tables in {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    codec.update()
+    torch.cuda.synchronize()
+    convs = [m for m in model.modules() if isinstance(m, _TapConv)]
+    print(f"[codec] update() again {time.time() - t0:.3f} s; prepared conv "
+          f"weights: {sum(len(m._plans) for m in convs)} layers, "
+          f"{codec.prepared_bytes / 2**20:.1f} MiB held", flush=True)
     xyz, rgb = surface_cloud(np.random.default_rng(10), extent=1024,
                              n_target=760_000)
     frame = np.concatenate([xyz.astype(np.float32), rgb], 1)
@@ -646,6 +726,7 @@ def main():
     # timed run with the launch counts zeroed just before
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    prepared_before = F.PREPARE_CALLS
     t0 = time.time()
     data = codec.compress(frame, q, block_size=1024)
     t_enc = time.time() - t0
@@ -662,14 +743,17 @@ def main():
     for name in CODEC_KERNELS:
         assert launches[name] > 0, \
             f"kernel {name} was not launched on the main path"
+    assert launches == TOPK_LAUNCHES, (launches, TOPK_LAUNCHES)
+    assert F.PREPARE_CALLS == prepared_before, \
+        "a conv prepared its weights during the frame (stale or missing plan)"
     bpp = len(data) * 8 / len(frame)
     met = pc_metrics(frame, rec, 1023)
     print(f"[codec] block 1024: points={len(frame)} decoded={rec.shape[0]} "
           f"(= sum k[2] {k_sum}) encode={t_enc:.3f} s decode={t_dec:.3f} s "
           f"bpp={bpp:.4f} D1_PSNR={met['sym_psnr_mse']:.3f} dB "
           f"Y_PSNR={met['sym_y_psnr']:.3f} dB "
-          f"max_memory_allocated={peak / 2**30:.2f} GiB launches={launches}",
-          flush=True)
+          f"max_memory_allocated={peak / 2**30:.2f} GiB launches={launches} "
+          f"conv weights prepared during the frame=0", flush=True)
 
     # one more run recording every kernel call's inputs (for phase 4)
     kernels.RECORD = {}
@@ -687,8 +771,18 @@ def main():
           f"{len(data512) * 8 / len(frame):.4f}", flush=True)
 
     # 4. recorded main-path calls: kernel vs plain, times, bounds
-    rows = measure_recorded(record)
-    del record
+    layer_of = {id(plan): (m, kind) for m in convs
+                for kind, (_, plan) in m._plans.items()}
+    rows = measure_recorded(record, layer_of)
+    del record, layer_of
+    torch.cuda.synchronize()
+    t0 = time.time()
+    held = sum(m.prepare() for m in convs)
+    torch.cuda.synchronize()
+    print(f"[k1 main] the times above are with the weights prepared ahead; "
+          f"preparing all {len(convs)} conv layers (block lists + packed "
+          f"operands, {held / 2**20:.1f} MiB) takes "
+          f"{(time.time() - t0) * 1e3:.1f} ms, once per update()", flush=True)
     for r in rows.values():
         r["bound_by"] = "bytes" if r["t_bytes"] >= r["t_ops"] else "operations"
 

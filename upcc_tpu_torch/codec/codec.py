@@ -37,6 +37,7 @@ from ..coding import occ as occ_coder
 from ..coding import octree, rans
 from ..models.entropy import gaussian
 from ..models.entropy.bottleneck import build_cdf_tables
+from ..models.layers import _TapConv
 from ..ops import coords as C
 from ..ops import family as F
 from ..ops.sparse import SparseTensor, voxelize_host_np
@@ -112,6 +113,7 @@ class Codec:
             torch.backends.cudnn.allow_tf32 = False
         self.model = model.to(self.device).eval()
         self.tables = None
+        self.prepared_bytes = 0
         # debug=True records each block's symbols and entropy parameters
         # (debug_info) and each coded-occupancy stage's context bins
         # (debug_bins) on both sides, and runs everything sequentially
@@ -141,7 +143,13 @@ class Codec:
         return torch.as_tensor(np.ascontiguousarray(x)).to(self.device)
 
     def update(self):
-        """Freeze the entropy models into integer CDF tables."""
+        """Freeze the entropy models into integer CDF tables and prepare
+        every tap conv's weights for the gather-GEMM (block list + packed
+        operands, once per layer instead of once per call).  Sets
+        ``prepared_bytes``, the bytes the prepared weights hold."""
+        self.prepared_bytes = sum(
+            m.prepare() for m in self.model.modules()
+            if isinstance(m, _TapConv))
         bn = self.model.entropy_model.bottleneck
         self.tables = {
             "z": build_cdf_tables(bn.numpy_params(), bn.channels),

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ctypes — no
 PyTorch headers, so a build takes seconds.  Libraries land in ``build/``
 at the repository root (``UPCC_TORCH_BUILD`` overrides it), named by a
-hash of the source and the flags, so an edited source always rebuilds.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source always rebuilds.
 ``build()`` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -47,9 +48,10 @@ _I64 = ctypes.c_int64
 # cudaError_t of its launches (0 = success)
 _SIGNATURES = {
     "tap_gemm": {
-        # flat, n_src, k_in, idx, ok, rows, taps, w, k_out, wmask, out, stream
+        # flat, n_src, k_in, idx, ok, rows, taps, wpack, k_out, tap_ptr,
+        # blk_k0, bn, wgs, out, stream
         "upcc_tap_gemm": [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _I64, _P,
-                          _P, _P],
+                          _P, _I64, _I64, _P, _P],
     },
     "topk_mask": {
         # keys, logits, k, n, maxb, hist, prefix, krem, counts, blk,
@@ -66,9 +68,10 @@ _SIGNATURES = {
         "upcc_compact_rows": [_P, _P, _I64, _I64, _I64, _P, _P],
     },
     "tile_tapconv": {
-        # x, idx, w, rows, k_in, k_out, taps, tile, is_f32, out, stream
-        "upcc_tile_tapconv": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                              ctypes.c_int, _P, _P],
+        # x, x_round, idx, wpack, n_blocks, tap_ptr, blk_k0, rows, k_in,
+        # k_out, taps, tile, is_f32, bn, wgs, out, stream
+        "upcc_tile_tapconv": [_P, _P, _P, _P, _I64, _P, _P, _I64, _I64, _I64,
+                              _I64, _I64, ctypes.c_int, _I64, _I64, _P, _P],
     },
     "window_gather_sum": {
         # win, idx, tiles, s_rows, k, taps, out, stream
@@ -110,8 +113,12 @@ def _nvcc():
 
 def _lib_path(name):
     src = os.path.join(_PKG, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    csrc = os.path.dirname(src)
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(os.path.join(csrc, h) for h in os.listdir(csrc)
+                               if h.endswith(".cuh")):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, "cuda",
                              f"{name}-{digest.hexdigest()[:16]}.so")
 

@@ -15,7 +15,18 @@ from ..ops import family as F
 
 
 class _TapConv(nn.Module):
-    """Weights ``w`` [kernel_size^3, cin, cout] and bias ``b`` [cout]."""
+    """Weights ``w`` [kernel_size^3, cin, cout] and bias ``b`` [cout].
+
+    ``taps(kind)`` is ``w`` prepared for the tap gather-GEMM at one call
+    shape (``ops.family.prepare_taps``), cached per kind.  A cached plan is
+    used only while it was built from the current parameter: the key holds
+    the parameter's version counter (in-place updates and
+    ``load_state_dict`` bump it), its storage address and device (``.to()``
+    changes them) and the compute dtype.  Writes through ``w.data`` bypass
+    the version counter: call ``prepare()`` (``Codec.update()`` does) after
+    them."""
+
+    kind = None  # the layer's call shape outside grandparent layout
 
     def __init__(self, cin, cout, kernel_size, use_bias=True):
         super().__init__()
@@ -23,21 +34,53 @@ class _TapConv(nn.Module):
         self.kernel_size = kernel_size
         self.w = nn.Parameter(torch.randn(k, cin, cout) * (1.0 / (k * cin)) ** 0.5)
         self.b = nn.Parameter(torch.zeros(cout)) if use_bias else None
+        # set by the owning transform when it runs this layer in
+        # grandparent-brick layout: tells prepare() which shape to build
+        self.grand = False
+        self._plans = {}
+
+    def _key(self):
+        w = self.w
+        return (w._version, w.data_ptr(), w.device,
+                F.default_compute_dtype(w.device))
+
+    def taps(self, grand=False):
+        """The prepared weights for this call shape, rebuilt if stale
+        (detached from autograd: the port's forward is inference only)."""
+        kind = "grand_" + self.kind if grand else self.kind
+        key = self._key()
+        hit = self._plans.get(kind)
+        if hit is None or hit[0] != key:
+            hit = (key, F.prepare_taps(self.w.detach(), kind,
+                                       self.kernel_size, key[3]))
+            self._plans[kind] = hit
+        return hit[1]
+
+    def prepare(self):
+        """Drop every cached plan and build the one this layer runs with.
+        Returns the bytes held."""
+        self._plans = {}
+        if self.kind == "transpose" and self.kernel_size == 2:
+            return 0  # one dense product, no taps
+        return self.taps(self.grand).nbytes
 
 
 class FamilyConv(_TapConv):
     """Stride-1 sparse conv (odd kernel <= 5) over octree bricks."""
+
+    kind = "conv"
 
     def forward(self, fm, feats, valid, out_fm=None, out_keys_valid=None,
                 nbr_cross=None, grand=False):
         if grand:
             # grandparent-brick mode: fm = G self-neighbour map, feats =
             # [G, 64, cin] grandchild brick, valid = [G, 64] slot mask
-            out = F.grand_apply(fm, feats, self.w, self.kernel_size, "conv")
+            out = F.grand_apply(fm, feats, self.taps(True), self.kernel_size,
+                                "conv")
             if self.b is not None:
                 out = out + self.b
             return out * valid[..., None].to(out.dtype)
-        out = F.family_conv(fm, feats, valid, self.w, self.kernel_size,
+        out = F.family_conv(fm, feats, valid, self.taps(), self.kernel_size,
                             out_fm, out_keys_valid, nbr_cross)
         if self.b is not None:
             ov = out_keys_valid if out_keys_valid is not None else valid
@@ -48,16 +91,20 @@ class FamilyConv(_TapConv):
 class FamilyDownConv(_TapConv):
     """Stride-2 sparse conv; output set = fm.parent_keys."""
 
+    kind = "down"
+
     def forward(self, fm, feats, valid, grand=False):
         if grand:
             # fm = G self map of the input's grandparent level, feats =
             # [G, 64, cin]; returns [G, 8, cout] child bricks (the caller
             # unflattens and re-masks)
-            out = F.grand_apply(fm, feats, self.w, self.kernel_size, "down")
+            out = F.grand_apply(fm, feats, self.taps(True), self.kernel_size,
+                                "down")
             if self.b is not None:
                 out = out + self.b
             return out
-        out = F.family_down_conv(fm, feats, valid, self.w, self.kernel_size)
+        out = F.family_down_conv(fm, feats, valid, self.taps(),
+                                 self.kernel_size)
         if self.b is not None:
             out = (out + self.b) * C.key_is_valid(fm.parent_keys)[:, None] \
                 .to(out.dtype)
@@ -67,17 +114,20 @@ class FamilyDownConv(_TapConv):
 class FamilyTransposeUp(_TapConv):
     """Generative stride-2 transposed conv onto the full child expansion."""
 
+    kind = "transpose"
+
     def forward(self, nbr_self, feats, valid, grand=False):
         if grand:
             # nbr_self = G self map, feats = [G, 8, cin] child brick of G,
             # valid = [G, 64] candidate mask; non-candidate slots come out
             # zero (downstream grand convs gather whole G rows)
-            out = F.grand_apply(nbr_self, feats, self.w, self.kernel_size,
-                                "transpose")
+            out = F.grand_apply(nbr_self, feats, self.taps(True),
+                                self.kernel_size, "transpose")
             if self.b is not None:
                 out = out + self.b
             return out * valid[..., None].to(out.dtype)
-        out = F.family_transpose_up(nbr_self, feats, valid, self.w,
+        w = self.w if self.kernel_size == 2 else self.taps()
+        out = F.family_transpose_up(nbr_self, feats, valid, w,
                                     self.kernel_size)
         if self.b is not None:
             # output rows follow the nbr map's rows; kernel-2 transposes

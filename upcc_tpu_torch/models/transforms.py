@@ -35,6 +35,7 @@ class AnalysisTransform(nn.Module):
         self.cap_factors = tuple(cap_factors)
         self.grand_input = grand_input
         self.conv1 = FamilyDownConv(C_in, N1, 5)
+        self.conv1.grand = grand_input
         self.gdn1 = GDN(N1)
         self.conv2 = FamilyDownConv(N1, N2, 5)
         self.gdn2 = GDN(N2)
@@ -151,6 +152,9 @@ class SparseSynthesisTransform(nn.Module):
         for cin, cout, tname, pcin, pchid, pname in self.specs:
             self.add_module(tname, FamilyTransposeUp(cin, cout, 5))
             self.add_module(pname, OccupancyHead(pcin, pchid))
+        if grand_finest:
+            # the finest level runs in grandparent layout
+            self.up3_t.grand = self.pred3.c1.grand = self.pred3.c2.grand = True
         self.igdn2 = GDN(N2, inverse=True)
         self.igdn3 = GDN(N1, inverse=True)
         self.color_conv = PointwiseConv(N1 // 4, C_out)

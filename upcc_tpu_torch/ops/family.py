@@ -10,7 +10,9 @@ through static tables.  At the decoder's finest level the same engine runs
 on grandparent bricks ([G, 64, C]).
 
 ``tap_gemm`` — the gather-GEMM under every conv here — is kernel K1 on the
-card (``csrc/tap_gemm.cu``) and ``tap_gemm_plain`` on the CPU.
+card (``csrc/tap_gemm.cu``) and ``tap_gemm_plain`` on the CPU.  Both take a
+layer's weights prepared once (``prepare_taps`` -> ``ops/tapplan.py``); each
+conv below accepts the raw [K^3, cin, cout] parameter or its TapPlan.
 """
 
 import dataclasses
@@ -21,6 +23,7 @@ import torch
 
 from .. import kernels
 from . import coords as C
+from . import tapplan
 from .scan import cumsum_i32
 
 
@@ -384,15 +387,70 @@ def _expanded_weights(weights, kernel_size):
 
 # -- K1: the tap gather-GEMM -------------------------------------------------
 
-# tile of csrc/tap_gemm.cu: a [TAP_BK, TAP_BN] block of a tap's weights that
-# is all zero is skipped (the mask is computed here, per call)
-TAP_BK = 32
-TAP_BN = 128
+@functools.lru_cache(maxsize=None)
+def _tap_table_np(kind, kernel_size):
+    """The static tap table of a call shape as [27, n_in, n_out]."""
+    if kind == "conv":
+        return _slot_tap_table(kernel_size)
+    if kind == "down":
+        return _down_tap_table(kernel_size)[:, :, None]
+    if kind == "transpose":
+        assert kernel_size == 5
+        return _transpose_tap_table()[:, None, :]
+    return _grand_tap_table(kernel_size, kind[len("grand_"):])
+
+
+def _dense_taps(weights, kind, kernel_size):
+    """weights [K^3, cin, cout] -> the dense [27, n_in*cin, n_out*cout]
+    stack of a call shape (structural zeros filled in)."""
+    cin, cout = weights.shape[1], weights.shape[2]
+    dev = weights.device
+    if kind == "conv":
+        return _expanded_weights(weights, kernel_size)
+    if kind == "down":
+        wt = _gather_taps(weights, _table("down_tap", dev, kernel_size))
+        return wt.reshape(27, 8 * cin, cout)
+    if kind == "transpose":
+        wt = _gather_taps(weights, _table("transpose_tap", dev))
+        # [27, Cin, 8*Cout] with the output slot-major
+        return wt.permute(0, 2, 1, 3).reshape(27, cin, 8 * cout)
+    return grand_expand_weights(weights, kernel_size, kind[len("grand_"):],
+                                weights.dtype)
+
+
+# calls of prepare_taps so far: a run that must not prepare weights per call
+# (the codec after update()) reads it before and after
+PREPARE_CALLS = 0
+
+
+def prepare_taps(weights, kind, kernel_size, compute_dtype=None):
+    """Prepare a layer's parameter [K^3, cin, cout] for ``tap_gemm`` at one
+    call shape (``kind``: "conv", "down", "transpose" or "grand_" + the
+    ``grand_apply`` mode): operands rounded to the compute dtype, packed
+    into the nonzero blocks the static table lists
+    (``ops/tapplan.py``).  Done once per layer by ``Codec.update()``; the
+    convs below also take the raw parameter and prepare it per call."""
+    global PREPARE_CALLS
+    PREPARE_CALLS += 1
+    compute_dtype = compute_dtype or default_compute_dtype(weights.device)
+    dense = _dense_taps(weights, kind, kernel_size).to(compute_dtype)
+    return tapplan.plan_from_dense(
+        dense, _tap_table_np(kind, kernel_size) >= 0, weights.shape[1],
+        weights.shape[2])
+
+
+def _as_plan(weights, kind, kernel_size, compute_dtype):
+    if isinstance(weights, tapplan.TapPlan):
+        return weights
+    return prepare_taps(weights, kind, kernel_size, compute_dtype)
 
 
 def tap_gemm_plain(flat, nbr_idx, nbr_ok, wstack):
     """acc[r] = sum_k (flat[idx[r, k]] * ok[r, k]) @ wstack[k], in f32, taps
-    summed in order.  flat [n_src, K_in]; wstack [T, K_in, K_out]."""
+    summed in order.  flat [n_src, K_in]; wstack a dense [T, K_in, K_out]
+    stack, or a TapPlan whose listed blocks are laid back into one."""
+    if isinstance(wstack, tapplan.TapPlan):
+        wstack = wstack.dense()
     n_src = flat.shape[0]
     rows, taps = nbr_idx.shape
     flat = flat.float()
@@ -406,47 +464,50 @@ def tap_gemm_plain(flat, nbr_idx, nbr_ok, wstack):
     return acc
 
 
-def tap_block_mask(wstack):
-    """uint8 [T, ceil(K_in/TAP_BK), ceil(K_out/TAP_BN)]: 1 where the weight
-    block has a nonzero entry."""
-    t, k_in, k_out = wstack.shape
-    nz = (wstack != 0).to(torch.uint8)
-    nz = torch.nn.functional.pad(nz, (0, (-k_out) % TAP_BN, 0,
-                                      (-k_in) % TAP_BK))
-    nz = nz.reshape(t, nz.shape[1] // TAP_BK, TAP_BK,
-                    nz.shape[2] // TAP_BN, TAP_BN)
-    return nz.amax(dim=(2, 4)).contiguous()
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def tap_gemm(flat, nbr_idx, nbr_ok, wstack):
+def tap_gemm(flat, nbr_idx, nbr_ok, weights):
     """The gather-GEMM under every family conv (kernel K1 on the card).
 
     flat: [n_src, K_in]; nbr_idx int32 / nbr_ok bool [rows, T] (indices are
-    clipped to n_src-1); wstack [T, K_in, K_out].  Returns f32
-    [rows, K_out].  On CUDA tensors flat and wstack must be bf16, K_in and
-    K_out multiples of 8."""
+    clipped to n_src-1); weights: a TapPlan (``prepare_taps``); on CPU
+    tensors also a dense [T, K_in, K_out] stack.  Returns f32
+    [rows, K_out].  On CUDA tensors flat and the weights must be bf16, K_in
+    and K_out multiples of 8."""
     if not flat.is_cuda:
-        return tap_gemm_plain(flat, nbr_idx, nbr_ok, wstack)
+        return tap_gemm_plain(flat, nbr_idx, nbr_ok, weights)
+    plan = weights
+    if not isinstance(plan, tapplan.TapPlan):
+        raise TypeError("tap_gemm: on the card the weights must be prepared "
+                        "(prepare_taps)")
     rows, taps = nbr_idx.shape
     n_src, k_in = flat.shape
-    k_out = wstack.shape[-1]
+    k_out = plan.k_out
     kernels.require_cuda(flat, torch.bfloat16, 2, "tap_gemm flat")
-    kernels.require_cuda(wstack, torch.bfloat16, 3, "tap_gemm weights")
+    kernels.require_cuda(plan.wpack, torch.bfloat16, 3, "tap_gemm weights")
     kernels.require_cuda(nbr_idx, torch.int32, 2, "tap_gemm idx")
     kernels.require_cuda(nbr_ok, torch.bool, 2, "tap_gemm ok")
-    if (wstack.shape[:2] != (taps, k_in) or nbr_ok.shape != (rows, taps)
-            or k_in % 8 or k_out % 8 or n_src < 1):
+    if ((plan.taps, plan.k_in) != (taps, k_in) or taps > 32
+            or nbr_ok.shape != (rows, taps) or plan.bk != tapplan.TAP_BK
+            or k_in % 8 or k_out % 8 or not 1 <= n_src < 2 ** 31):
         raise ValueError(f"tap_gemm: bad shapes flat {tuple(flat.shape)}, "
-                         f"w {tuple(wstack.shape)}, idx {tuple(nbr_idx.shape)}")
+                         f"w {(plan.taps, plan.k_in, k_out)}, "
+                         f"idx {tuple(nbr_idx.shape)}")
     out = torch.empty((rows, k_out), dtype=torch.float32, device=flat.device)
     if rows == 0:
         return out
-    mask = tap_block_mask(wstack)
-    kernels.count_launch("tap_gemm", flat, nbr_idx, nbr_ok, wstack)
+    # 128-row tiles when they fill the card twice over, else 64-row tiles
+    # (the row tile never changes an output value, see ops/tapplan.py)
+    wgs = 2 if -(-rows // 128) * plan.n_col >= 2 * _sm_count(flat.device) \
+        else 1
+    kernels.count_launch("tap_gemm", flat, nbr_idx, nbr_ok, plan)
     kernels.check(kernels.lib("tap_gemm").upcc_tap_gemm(
         flat.data_ptr(), n_src, k_in, nbr_idx.data_ptr(), nbr_ok.data_ptr(),
-        rows, taps, wstack.data_ptr(), k_out, mask.data_ptr(),
-        out.data_ptr(), kernels.stream_ptr(flat)), "tap_gemm")
+        rows, taps, plan.wpack.data_ptr(), k_out, plan.tap_ptr.data_ptr(),
+        plan.k0.data_ptr(), plan.bn, wgs, out.data_ptr(),
+        kernels.stream_ptr(flat)), "tap_gemm")
     return out
 
 
@@ -470,10 +531,10 @@ def family_conv(fm_in: FamilyMap, in_feats, in_valid, weights, kernel_size,
     p_in = fm_in.num_parents
     p_out = nbr_idx.shape[0]
     cin = in_feats.shape[-1]
-    cout = weights.shape[-1]
-    wexp = _expanded_weights(weights, kernel_size).to(compute_dtype)
+    plan = _as_plan(weights, "conv", kernel_size, compute_dtype)
+    cout = plan.k_out // 8
     flat = brick[:p_in].reshape(p_in, 8 * cin).to(compute_dtype)
-    acc = tap_gemm(flat, nbr_idx, nbr_ok, wexp)
+    acc = tap_gemm(flat, nbr_idx, nbr_ok, plan)
     if out_fm.contiguous and out_fm.num_parents == p_out:
         out = acc.reshape(p_out * 8, cout)
     else:
@@ -493,9 +554,9 @@ def family_transpose_up(fm_parent_nbr, in_feats, in_valid, weights,
     [8*N, Cout] aligned with upsample_children_keys(in_keys)."""
     compute_dtype = compute_dtype or default_compute_dtype(in_feats.device)
     n = in_feats.shape[0]
-    cout = weights.shape[-1]
     x = (in_feats * in_valid[:, None].to(in_feats.dtype)).to(compute_dtype)
     if kernel_size == 2:
+        cout = weights.shape[-1]
         # out[8u + s] = in[u] @ W[s]: one product, zero gathers; operands
         # rounded to the compute dtype, accumulated in f32
         w = weights.to(compute_dtype).float()
@@ -503,13 +564,10 @@ def family_transpose_up(fm_parent_nbr, in_feats, in_valid, weights,
         return out.reshape(8 * n, cout)
     assert kernel_size == 5
     nbr_idx, nbr_ok = fm_parent_nbr
-    cin = weights.shape[1]
-    wt = _gather_taps(weights, _table("transpose_tap", weights.device))
-    # [27, Cin, 8*Cout] with the output slot-major
-    wt2 = wt.permute(0, 2, 1, 3).reshape(27, cin, 8 * cout).to(compute_dtype)
+    plan = _as_plan(weights, "transpose", kernel_size, compute_dtype)
     n_out = nbr_idx.shape[0]
-    acc = tap_gemm(x, nbr_idx, nbr_ok, wt2)
-    return acc.reshape(8 * n_out, cout)
+    acc = tap_gemm(x, nbr_idx, nbr_ok, plan)
+    return acc.reshape(8 * n_out, plan.k_out // 8)
 
 
 # -- grandparent-brick ("grand") kernels -------------------------------------
@@ -582,12 +640,11 @@ def grand_apply(g_nbr, in_brick, weights, kernel_size, mode,
     g = nbr_idx.shape[0]
     n_in, n_out = _GRAND_SLOTS[mode]
     cin = in_brick.shape[-1]
-    cout = weights.shape[-1]
-    wexp = grand_expand_weights(weights, kernel_size, mode, compute_dtype)
+    plan = _as_plan(weights, "grand_" + mode, kernel_size, compute_dtype)
     flat = in_brick.reshape(in_brick.shape[0], n_in * cin)[:g] \
         .to(compute_dtype).contiguous()
-    acc = tap_gemm(flat, nbr_idx, nbr_ok, wexp)
-    return acc.reshape(g, n_out, cout)
+    acc = tap_gemm(flat, nbr_idx, nbr_ok, plan)
+    return acc.reshape(g, n_out, plan.k_out // n_out)
 
 
 def family_down_conv(fm_in: FamilyMap, in_feats, in_valid, weights,
@@ -597,9 +654,8 @@ def family_down_conv(fm_in: FamilyMap, in_feats, in_valid, weights,
     compute_dtype = compute_dtype or default_compute_dtype(in_feats.device)
     brick = to_brick(fm_in, in_feats * in_valid[:, None].to(in_feats.dtype))
     p = fm_in.num_parents
-    cin, cout = in_feats.shape[-1], weights.shape[-1]
-    wt = _gather_taps(weights, _table("down_tap", weights.device, kernel_size))
-    wt = wt.to(compute_dtype).reshape(27, 8 * cin, cout)
+    cin = in_feats.shape[-1]
+    plan = _as_plan(weights, "down", kernel_size, compute_dtype)
     flat = brick[:p].reshape(p, 8 * cin).to(compute_dtype)
-    acc = tap_gemm(flat, fm_in.nbr_idx, fm_in.nbr_ok, wt)
+    acc = tap_gemm(flat, fm_in.nbr_idx, fm_in.nbr_ok, plan)
     return acc * C.key_is_valid(fm_in.parent_keys)[:, None].to(acc.dtype)

@@ -10,9 +10,11 @@ launches its kernel (``csrc/tile_tapconv.cu``, ``csrc/window_gather.cu``);
 on a CPU tensor it runs the plain version beside it.
 """
 
+import numpy as np
 import torch
 
 from .. import kernels
+from . import tapplan
 
 
 def tile_tapconv_plain(x, idx, w, tile):
@@ -46,18 +48,30 @@ def tile_tapconv(x, idx, w, tile):
     kernels.require_cuda(w, x.dtype, 3, "tile_tapconv weights")
     kernels.require_cuda(idx, torch.int32, 2, "tile_tapconv idx")
     if (x.shape[0] != rows or w.shape[:2] != (taps, k_in) or tile < 1
-            or rows % tile or k_in % 8 or k_out % 8 or taps < 1):
+            or rows % tile or k_in % 8 or k_out % 8 or not 1 <= taps <= 32):
         raise ValueError(f"tile_tapconv: bad shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, idx {tuple(idx.shape)}, "
                          f"tile {tile}")
     out = torch.empty((rows, k_out), dtype=torch.float32, device=x.device)
     if rows == 0:
         return out
+    is_f32 = x.dtype == torch.float32
+    # dense weights: every block listed, K-major tiles of one 128-byte row
+    plan = tapplan.plan_from_dense(
+        w, np.ones((taps, 1, 1), bool), k_in, k_out,
+        bk=32 if is_f32 else 64)
+    # f32: the kernel rounds x into this scratch (and the packed copy of w
+    # in place) to TF32 before the products
+    x_round = torch.empty_like(x) if is_f32 else x
+    # 128-row blocks when they fill the card, else 64-row blocks
+    wgs = 2 if rows >= 128 * 132 else 1
     kernels.count_launch("tile_tapconv", x, idx, w, tile)
     kernels.check(kernels.lib("tile_tapconv").upcc_tile_tapconv(
-        x.data_ptr(), idx.data_ptr(), w.data_ptr(), rows, k_in, k_out, taps,
-        tile, int(x.dtype == torch.float32), out.data_ptr(),
-        kernels.stream_ptr(x)), "tile_tapconv")
+        x.data_ptr(), x_round.data_ptr(), idx.data_ptr(),
+        plan.wpack.data_ptr(), plan.n_blocks, plan.tap_ptr.data_ptr(),
+        plan.k0.data_ptr(), rows, k_in, k_out, taps, tile, int(is_f32),
+        plan.bn, wgs, out.data_ptr(), kernels.stream_ptr(x)),
+        "tile_tapconv")
     return out
 
 

@@ -1,0 +1,153 @@
+"""Prepared tap weights: the operand layout and block list of kernel K1.
+
+Every learned conv of the codec is ``tap_gemm``: 27 gathered row tiles times
+27 weight matrices ``W[k]`` of shape [K_in, K_out] = [n_in * cin,
+n_out * cout], where (tap, slot_in, slot_out) selects one [cin, cout]
+matrix of the layer's [K^3, cin, cout] parameter or a structural zero (the
+static tables ``slot_tap``, ``down_tap``, ``transpose_tap``, ``grand_tap``
+hold -1 there).  Most slot pairs are structural zeros: 7/8 of a kernel-3
+child conv, over 98% of a grandparent-layout conv.
+
+A ``TapPlan`` is that stack prepared once per layer for the kernel:
+
+* ``wpack`` [n_blocks, BN, BK]: only the structurally nonzero
+  [BK x BN] blocks of the stack, each stored K-major (row = output column,
+  K contiguous: the B operand layout of the tensor-core mainloop), zero
+  padded at the K and N edges;
+* the block list in CSR form per column block: ``blk_ptr`` [n_col + 1],
+  ``blk_tap`` / ``blk_k0`` [n_blocks], **tap-major then K-major** inside a
+  column block, which is the plain version's summation order among the
+  nonzero products; ``tap_ptr`` [n_col, T + 1] is the same list indexed by
+  (column block, tap) for the kernel, which skips whole taps no row of its
+  tile reads.
+
+The list comes from the tables, never from the weight values, so it does
+not change with training.  The kernel walks it: there is no dense mask and
+no per-call scan.
+
+Tile rule.  BK is one 128-byte shared-memory row: 64 bf16 (32 for the f32
+probe variant).  BN = min(128, K_out rounded up to 32), whatever the slot
+width: a 128-wide block that spans several output slots (cout = 64, 32, 16,
+1) or straddles slot edges (cout = 192) lists the union of their taps, so it
+multiplies some structural zeros, but it runs the tensor cores at 1.5 to 3
+times the rate of slot-aligned 64- or 32-wide blocks and gathers each A tile
+for fewer column blocks.  Measured on an NVIDIA H100 80GB HBM3 (700 W) at
+the flagship's shapes, the wide blocks won at every shape with 8192 rows or
+more (PERF.md, Findings).
+
+Neither BN nor the row tile changes the value of an output element: its
+f32 sum runs over the same nonzero products in the same order (tap, then K
+in steps of 16), and the extra products of a union block are exact zeros.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+TAP_BK = 64  # elements of one K block for 2-byte operands
+
+
+def choose_bn(k_out):
+    """Column-block width of a stack with K_out columns."""
+    return min(128, -(-k_out // 32) * 32)
+
+
+def block_list(struct, cin, cout, bn, bk):
+    """Nonzero [bk x bn] blocks of a stack with slot structure ``struct``
+    (bool [T, n_in, n_out]: slot pair present) and slot widths cin, cout.
+    Returns int32 arrays (blk_ptr [n_col + 1], blk_tap, blk_k0), ordered by
+    column block, then tap, then K."""
+    struct = np.asarray(struct, bool)
+    taps, n_in, n_out = struct.shape
+    k_in, k_out = n_in * cin, n_out * cout
+    nkb, ncol = -(-k_in // bk), -(-k_out // bn)
+    nz = np.zeros((ncol, taps, nkb), bool)
+    for kb in range(nkb):
+        si0, si1 = kb * bk // cin, (min((kb + 1) * bk, k_in) - 1) // cin
+        rows = struct[:, si0:si1 + 1].any(1)  # [T, n_out]
+        for col in range(ncol):
+            so0 = col * bn // cout
+            so1 = (min((col + 1) * bn, k_out) - 1) // cout
+            nz[col, :, kb] = rows[:, so0:so1 + 1].any(1)
+    col, tap, kb = np.nonzero(nz)  # lexicographic: col, tap, kb
+    ptr = np.zeros(ncol + 1, np.int64)
+    np.cumsum(np.bincount(col, minlength=ncol), out=ptr[1:])
+    return (ptr.astype(np.int32), tap.astype(np.int32),
+            (kb * bk).astype(np.int32))
+
+
+@dataclasses.dataclass
+class TapPlan:
+    """One layer's prepared tap weights (see the module docstring)."""
+
+    k_in: int
+    k_out: int
+    taps: int
+    bn: int
+    bk: int
+    blk_ptr: np.ndarray   # int32 [n_col + 1]
+    blk_tap: np.ndarray   # int32 [n_blocks]
+    blk_k0: np.ndarray    # int32 [n_blocks]
+    wpack: torch.Tensor   # [n_blocks, bn, bk], the compute dtype
+    tap_ptr: torch.Tensor  # int32 [n_col, taps + 1], on wpack's device
+    k0: torch.Tensor       # int32 [n_blocks], on wpack's device
+
+    @property
+    def n_col(self):
+        return len(self.blk_ptr) - 1
+
+    @property
+    def n_blocks(self):
+        return len(self.blk_tap)
+
+    @property
+    def nbytes(self):
+        return sum(t.numel() * t.element_size()
+                   for t in (self.wpack, self.tap_ptr, self.k0))
+
+    def _index(self):
+        dev = self.wpack.device
+        col = np.repeat(np.arange(self.n_col), np.diff(self.blk_ptr))
+        as_t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
+        return as_t(self.blk_tap), as_t(self.blk_k0 // self.bk), as_t(col)
+
+    def dense(self):
+        """The [T, K_in, K_out] stack rebuilt from the listed blocks (every
+        unlisted block is zero)."""
+        nkb, ncol = -(-self.k_in // self.bk), self.n_col
+        out = self.wpack.new_zeros((self.taps, nkb, self.bk, ncol, self.bn))
+        tap, kb, col = self._index()
+        out[tap, kb, :, col, :] = self.wpack.transpose(1, 2)
+        return out.reshape(self.taps, nkb * self.bk, ncol * self.bn)[
+            :, :self.k_in, :self.k_out]
+
+
+def plan_from_dense(wstack, struct, cin, cout, bk=TAP_BK):
+    """Pack a dense [T, K_in, K_out] stack whose slot structure is
+    ``struct`` (bool [T, n_in, n_out], with K_in = n_in * cin and K_out =
+    n_out * cout): the block list comes from ``struct``, the tiles from the
+    stack."""
+    taps, k_in, k_out = wstack.shape
+    assert struct.shape[1] * cin == k_in and struct.shape[2] * cout == k_out
+    bn = choose_bn(k_out)
+    ptr, tap, k0 = block_list(struct, cin, cout, bn, bk)
+    nkb, ncol = -(-k_in // bk), len(ptr) - 1
+    dev = wstack.device
+    col = np.repeat(np.arange(ncol), np.diff(ptr))
+    wp = torch.nn.functional.pad(
+        wstack, (0, ncol * bn - k_out, 0, nkb * bk - k_in))
+    wp = wp.reshape(taps, nkb, bk, ncol, bn)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
+    tiles = wp[as_t(tap), as_t(k0 // bk), :, as_t(col), :]  # [nb, bk, bn]
+    wpack = tiles.transpose(1, 2).contiguous()
+    # per (column block, tap) ranges of the list
+    tap_ptr = np.zeros((ncol, taps + 1), np.int64)
+    np.cumsum(np.bincount(col * taps + tap, minlength=ncol * taps)
+              .reshape(ncol, taps), axis=1, out=tap_ptr[:, 1:])
+    tap_ptr += ptr[:-1, None]
+    return TapPlan(
+        k_in=k_in, k_out=k_out, taps=taps, bn=bn, bk=bk, blk_ptr=ptr,
+        blk_tap=tap, blk_k0=k0, wpack=wpack,
+        tap_ptr=torch.as_tensor(tap_ptr.astype(np.int32), device=dev),
+        k0=torch.as_tensor(k0, device=dev))

@@ -3,7 +3,9 @@
 ``python3 -m upcc_tpu_torch.probes.micro_gather`` and
 ``python3 -m upcc_tpu_torch.probes.window_gather`` are the counterparts of
 the JAX package's ``scripts/micro_gather.py`` and
-``scripts/prof_pallas_gather.py``.  They run on the card and raise without
+``scripts/prof_pallas_gather.py``; ``python3 -m
+upcc_tpu_torch.probes.tap_shapes`` times kernel K1 alone at the flagship's
+call shapes.  They run on the card and raise without
 one; ``--device cpu`` runs the kernels' plain versions instead (a check of
 the control flow, not a measurement).  Every printed line carries the
 card's name and power limit.

@@ -94,6 +94,10 @@ def main():
     for e in sorted(events, key=_device_us, reverse=True)[:20]:
         print(f"[profile] {_device_us(e) / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}", flush=True)
+    # K1 summed over the template instances of its mainloop
+    k1 = [e for e in events if "tap_mainloop_kernel" in e.key]
+    print(f"[profile] K1 tap_gemm: {sum(_device_us(e) for e in k1) / 1e3:.3f} "
+          f"ms in {sum(e.count for e in k1)} launches", flush=True)
 
 
 if __name__ == "__main__":
