@@ -12,9 +12,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      against the dense plain version on the dense stack (f32 tolerance
      below; ragged and short row counts, unread taps, nothing read, indices
      beyond the source, and rows placed elsewhere in a larger call being
-     bit-equal), K2 topk_mask and K3 compact (exact), P1 tile_tapconv in
-     both operand types (tolerances at P1_TOL) and P2 window_gather_sum
-     (exact);
+     bit-equal), K2 topk_mask in both of its modes (resident and
+     streaming, on the same inputs, and streaming by shape at 40M
+     candidates) and K3 compact (exact), P1 tile_tapconv in both operand
+     types (tolerances at P1_TOL) and P2 window_gather_sum in its slab mode
+     (8- and 4-float slabs, ragged widths) and its streaming mode (exact,
+     bit for bit);
   3. the codec's main path at full width: the committed epoch-193 flagship
      weights, the vox10-scale synthetic frame (760k points), compress ->
      decompress at q=(0.5, 0.5), block 1024 (once recording every kernel
@@ -25,12 +28,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      prepared its weights during the frame (update() did);
   4. every recorded main-path kernel call against its plain version (K1:
      the prepared weights the codec used against the dense stack built from
-     the layer's parameter), timed (kernel, plain, one library call or call
-     sequence doing the same work as yardstick) beside its roofline bound;
+     the layer's parameter; K2 in both modes), timed (kernel, plain, one
+     library call or call sequence doing the same work as yardstick) beside
+     its roofline bound; one call of K2 under torch.profiler, whose device
+     operations (at most K2_MAX_DEVICE_OPS) are listed;
   5. the two probe entry points (upcc_tpu_torch.probes) at their published
      shapes, launch counts zeroed just before; then P1 and P2 on the same
      full arrays against their plain versions, timed beside a library call
-     and the bound;
+     and the bound (P2 in each of its modes, and with a conflict-free
+     index);
   6. the lossless path at full width: compress(geom="coded") -> decompress
      at block 1024 and block 512; every stage's context bins equal on both
      sides, the decoded voxel set equal to the input's, K1 and K3 launched;
@@ -65,12 +71,14 @@ from upcc_tpu_torch.models.layers import _TapConv
 from upcc_tpu_torch.models.unified import UnifiedModel
 from upcc_tpu_torch.ops import coords as C
 from upcc_tpu_torch.ops import family as F
-from upcc_tpu_torch.ops.probe_kernels import (tile_tapconv,
+from upcc_tpu_torch.ops.probe_kernels import (WindowPlan, tile_tapconv,
                                               tile_tapconv_plain,
                                               window_gather_sum,
-                                              window_gather_sum_plain)
+                                              window_gather_sum_plain,
+                                              window_plan)
 from upcc_tpu_torch.ops.sparse import SparseTensor, compact, compact_plain
-from upcc_tpu_torch.ops.topk import topk_mask, topk_mask_plain
+from upcc_tpu_torch.ops.topk import (topk_mask, topk_mask_plain, topk_plan,
+                                     topk_smem)
 from upcc_tpu_torch.probes import (PEAK_BF16, PEAK_BYTES, PEAK_TF32,
                                    micro_gather, window_gather)
 from upcc_tpu_torch.weights import FLAGSHIP_CONFIG, load_weights
@@ -115,6 +123,37 @@ def cuda_time(fn, reps):
 def bound_ms(nbytes, flops, peak=PEAK_BF16):
     tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def device_ops(fn):
+    """The device operations (kernels, memsets, copies) of one call of
+    ``fn`` as torch.profiler sees them, after one warm-up call:
+    [(name, start us, duration us)] in start order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(((e.name, e.time_range.start, e.time_range.elapsed_us())
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda op: op[1])
+
+
+def print_ops(tag, ops):
+    """One line per device operation: its time and the gap before it."""
+    t0 = ops[0][1] if ops else 0
+    end = t0
+    for i, (name, start, dur) in enumerate(ops):
+        print(f"[{tag}] op {i}: start +{start - t0:.1f} us, {dur:.1f} us, "
+              f"gap {max(0.0, start - end):.1f} us: {name[:70]}", flush=True)
+        end = max(end, start + dur)
+    busy = sum(op[2] for op in ops)
+    print(f"[{tag}] {len(ops)} device ops, busy {busy:.1f} us over a span of "
+          f"{end - t0:.1f} us", flush=True)
 
 
 # -- phase 2: kernels on edge-case inputs ------------------------------------
@@ -210,8 +249,33 @@ def check_tap_gemm(gen):
         assert same, "tap_gemm depends on where a row sits in its call"
 
 
+def topk_modes(keys, k):
+    """K2's plan for these inputs and, where that one is resident, the
+    streaming plan of the same grid: both modes on the same inputs."""
+    n, maxb = keys.shape[0], k.shape[0]
+    plan = topk_plan(n, maxb, *kernels.device_limits(keys.device))
+    plans = {("resident" if plan.resident else "streaming"): plan}
+    if plan.resident:
+        plans["streaming"] = plan._replace(
+            resident=False, smem=topk_smem(maxb, plan.per_block, False))
+    return plans
+
+
 def check_topk(gen):
     dev = "cuda"
+
+    def check(name, keys, logits, kt):
+        ref = topk_mask_plain(keys, logits, kt)
+        st = SparseTensor(keys, logits[:, None])
+        for mode, plan in topk_modes(keys, kt).items():
+            got = topk_mask(st, logits, kt, plan=plan)
+            torch.cuda.synchronize()
+            nbad = int((got != ref).sum())
+            print(f"[k2] {name}: n={keys.shape[0]} batches={kt.shape[0]} "
+                  f"{mode} grid={plan.grid} per_block={plan.per_block} "
+                  f"kept={int(got.sum())} mismatches={nbad}", flush=True)
+            assert nbad == 0, \
+                f"topk_mask {name} ({mode}) differs from its plain version"
 
     def case(name, counts, k, quant):
         keys = []
@@ -225,14 +289,8 @@ def check_topk(gen):
         logits = torch.round(logits * quant) / quant  # many ties
         logits[::97] = -0.0
         logits[1::97] = 0.0
-        kt = torch.tensor(k, dtype=torch.int32, device=dev)
-        got = topk_mask(SparseTensor(keys, logits[:, None]), logits, kt)
-        ref = topk_mask_plain(keys, logits, kt)
-        torch.cuda.synchronize()
-        nbad = int((got != ref).sum())
-        print(f"[k2] {name}: n={keys.shape[0]} batches={len(counts)} "
-              f"kept={int(got.sum())} mismatches={nbad}", flush=True)
-        assert nbad == 0, f"topk_mask {name} differs from its plain version"
+        check(name, keys, logits,
+              torch.tensor(k, dtype=torch.int32, device=dev))
 
     counts = torch.randint(1, 40000, (63,), generator=gen,
                            device=dev).tolist()
@@ -242,6 +300,27 @@ def check_topk(gen):
     case("63 batches, k=0, k=count, k>count, k<0", counts, k + [0], 4.0)
     case("one batch, coarse ties", [300000], [123457], 1.0)
     case("tie-heavy 8 batches", [5000] * 8, [2500] * 8, 0.5)
+    # the main path's form: one populated batch of 64, the rest k = 0
+    case("main-path form, maxb 64", [1 << 20], [300001] + [0] * 63, 2.0)
+    # more batches than keys can name (the last ones stay empty): the
+    # per-batch arrays' alignment in shared memory
+    case("maxb 1023, 64 populated", [2000] * 64, [1000] * 64 + [5] * 959,
+         2.0)
+    # the buffers K2 keeps per stream, after a call with fewer batches and
+    # many blocks: coarse positive ties put the thresholds' low bytes in
+    # bin 0, where stray counts from an earlier call would move them
+    case("maxb 1, coarse ties", [600000], [250000], 2.0)
+    case("maxb 2 after maxb 1", [300000, 300000], [120000, 150000], 2.0)
+    case("maxb 8 after maxb 2", [70000] * 8, [30000] * 8, 2.0)
+    # beyond what the grid can hold in shared memory: streaming by shape
+    n = 40_000_003
+    keys = torch.arange(n, device=dev, dtype=torch.int64) * 5
+    keys[-1001:] = C.SENTINEL
+    logits = torch.round(torch.randn(n, generator=gen, device=dev) * 2) / 2
+    logits[::101] = -0.0
+    check("40M candidates, one batch, tie-heavy", keys, logits,
+          torch.tensor([n // 3], dtype=torch.int32, device=dev))
+    del keys, logits
 
 
 def check_compact(gen):
@@ -273,6 +352,10 @@ def check_compact(gen):
 # each), the plain version multiplies in full f32; over a sum of 27 * K_in
 # products of random sign that is a few 1e-4 of the largest output.
 P1_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-3}
+# K2 runs as one cooperative kernel (at most one memset of scratch beside
+# it is allowed); None lifts the check (to profile an older kernel with
+# the same script)
+K2_MAX_DEVICE_OPS = 2
 
 
 def check_tile_tapconv(gen):
@@ -301,21 +384,60 @@ def check_tile_tapconv(gen):
             assert err <= tol, "tile_tapconv disagrees with its plain version"
 
 
+def window_modes(win):
+    """P2's plan for these windows, 4-float slabs where the plan's are 8
+    wide and the row splits into them, and the streaming plan."""
+    s_rows, k = win.shape[1], win.shape[2]
+    plan = window_plan(s_rows, k, kernels.device_limits(win.device)[1])
+    plans = {(f"slab W={plan.width} last={plan.last}" if plan.width
+              else "streaming"): plan}
+    if plan.width == 8 and k % 8 == 0:
+        plans["slab W=4 last=4"] = WindowPlan(4, k // 4, 4, s_rows * 16)
+    plans["streaming"] = WindowPlan(0, 0, 0, 0)
+    return plans
+
+
 def check_window_gather(gen):
     dev = "cuda"
-    for tiles, s_rows, k in ((1, 4096, 512), (3, 1000, 64), (2, 37, 12)):
+    # the probe's shape; narrow and ragged widths (K % 8 == 4: a 4-wide
+    # last slab); a window only 4-wide slabs fit; one no slab fits
+    for tiles, s_rows, k in ((1, 4096, 512), (3, 1000, 64), (2, 37, 12),
+                             (2, 4096, 12), (2, 4096, 64), (1, 10000, 64),
+                             (1, 20000, 64)):
         win = torch.randn((tiles, s_rows, k), generator=gen, device=dev)
+        win[:, ::11] = -0.0
         idx = torch.randint(0, s_rows, (tiles, 27, s_rows), generator=gen,
                             device=dev, dtype=torch.int32)
         idx[:, 5] = idx[:, 6]  # repeated indices
         idx[:, :, ::7] = 0
-        got = window_gather_sum(win, idx)
+        idx[:, 3, ::13] = -5          # clipped to the first row
+        idx[:, 4, ::13] = s_rows + 9  # clipped to the last
         ref = window_gather_sum_plain(win, idx)
-        torch.cuda.synchronize()
-        same = torch.equal(got, ref)
-        print(f"[p2] tiles={tiles} window={s_rows} K={k}: equal={same} "
-              f"(tolerance: exact)", flush=True)
-        assert same, "window_gather_sum differs from its plain version"
+        for mode, plan in window_modes(win).items():
+            got = window_gather_sum(win, idx, plan=plan)
+            torch.cuda.synchronize()
+            same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+            print(f"[p2] tiles={tiles} window={s_rows} K={k} {mode}: "
+                  f"bit-equal={same} (tolerance: exact)", flush=True)
+            assert same, f"window_gather_sum ({mode}) differs from its " \
+                "plain version"
+
+
+def bank_wavefronts(idx, width):
+    """Mean shared-memory wavefronts per quarter warp of P2's slab-mode
+    gathers with these indices, counted from the indices (a model of the
+    banks, not a hardware counter): at width 8 a quarter warp (8 lanes x
+    16 bytes) reads 4 output rows' source rows, 32 bytes each, so source
+    row r lies in bank group r % 4; distinct rows of one group serialize.
+    At width 4 a quarter warp reads 8 rows of 16 bytes, group r % 8."""
+    per = 4 if width == 8 else 8
+    rows = idx.clamp(0, idx.shape[-1] - 1).long().reshape(-1, per)
+    rows = rows.sort(1).values
+    new = torch.ones_like(rows, dtype=torch.float32)
+    new[:, 1:] = (rows[:, 1:] != rows[:, :-1]).float()
+    groups = torch.zeros((rows.shape[0], per), device=rows.device)
+    groups.scatter_add_(1, rows % per, new)
+    return float(groups.amax(1).mean())
 
 
 # -- phase 4: recorded main-path calls ---------------------------------------
@@ -371,9 +493,15 @@ def measure_recorded(record, layer_of):
 
     for keys, logits, k in record.get("topk_mask", []):
         st = SparseTensor(keys, logits[:, None])
-        got = topk_mask(st, logits, k)
         ref = topk_mask_plain(keys, logits, k)
-        assert torch.equal(got, ref), "topk_mask differs on a main-path call"
+        modes = topk_modes(keys, k)
+        t_modes = {}
+        for mode, plan in modes.items():
+            got = topk_mask(st, logits, k, plan=plan)
+            assert torch.equal(got, ref), \
+                f"topk_mask ({mode}) differs on a main-path call"
+            t_modes[mode] = cuda_time(
+                lambda: topk_mask(st, logits, k, plan=plan), 10)
         t_k = cuda_time(lambda: topk_mask(st, logits, k), 10)
         t_p = cuda_time(lambda: topk_mask_plain(keys, logits, k), 3)
         b = C.key_batch(keys).long().clamp(0, k.shape[0] - 1)
@@ -385,9 +513,19 @@ def measure_recorded(record, layer_of):
         t_l = cuda_time(lambda: torch.topk(seg, kk), 10)
         n = keys.shape[0]
         nbytes = n * (8 + 4 + 1) + k.numel() * 4
-        print(f"[k2 main] n={n} kernel={t_k:.3f} ms plain={t_p:.3f} ms "
-              f"torch.topk={t_l:.3f} ms bound={bound_ms(nbytes, 0)[0]:.4f} ms",
-              flush=True)
+        ops = device_ops(lambda: topk_mask(st, logits, k))
+        print_ops("k2 ops", ops)
+        plan = next(iter(modes.values()))
+        print(f"[k2 main] n={n} maxb={k.shape[0]} kept={int(ref.sum())} "
+              f"kernel={t_k:.3f} ms ("
+              + ", ".join(f"{m} {t:.3f}" for m, t in t_modes.items())
+              + f"; grid={plan.grid} per_block={plan.per_block}) "
+              f"plain={t_p:.3f} ms torch.topk={t_l:.3f} ms "
+              f"bound={bound_ms(nbytes, 0)[0]:.4f} ms "
+              f"device ops per call={len(ops)}", flush=True)
+        if K2_MAX_DEVICE_OPS is not None:
+            assert 0 < len(ops) <= K2_MAX_DEVICE_OPS, \
+                f"topk_mask ran {len(ops)} device operations in one call"
         add("topk_mask", 0.0, t_k, t_p, t_l, nbytes, 0)
 
     for keys, keep, arrays, m in record.get("compact", []):
@@ -486,24 +624,55 @@ def run_probes():
         del x, idx, w
 
     win, idx = window_gather.window_inputs(16, "cuda")
-    got = window_gather_sum(win, idx)
     ref = window_gather_sum_plain(win, idx)
-    assert torch.equal(got, ref), "window_gather_sum differs at the " \
-        "probe's shape"
+    modes = window_modes(win)
+    t_modes = {}
+    for mode, plan in modes.items():
+        got = window_gather_sum(win, idx, plan=plan)
+        assert torch.equal(got, ref), \
+            f"window_gather_sum ({mode}) differs at the probe's shape"
+        t_modes[mode] = cuda_time(
+            lambda: window_gather_sum(win, idx, plan=plan), 10)
     del got, ref
     t_k = cuda_time(lambda: window_gather_sum(win, idx), 10)
     t_p = cuda_time(lambda: window_gather_sum_plain(win, idx), 3)
     il = idx.long()
     t_l = cuda_time(lambda: [win[t][il[t]].sum(0)
                              for t in range(win.shape[0])], 3)
+    # the same work with every row gathering itself: the slab modes'
+    # shared-memory reads without bank conflicts
+    ident = torch.arange(win.shape[1], device="cuda", dtype=torch.int32
+                         ).expand(idx.shape).contiguous()
+    t_id = {m: cuda_time(lambda: window_gather_sum(win, ident, plan=plan), 10)
+            for m, plan in modes.items() if plan.width}
     nbytes = 2 * win.numel() * 4 + idx.numel() * 4
     b, by = bound_ms(nbytes, 0)
     payload = idx.numel() * win.shape[2] * 4
     print(f"[p2 probe] tiles={win.shape[0]} window={win.shape[1]} "
           f"K={win.shape[2]} equal=True kernel={t_k:.3f} ms "
-          f"({payload / t_k / 1e9:.2f} TB/s gathered payload) "
-          f"plain={t_p:.3f} ms win[t][idx[t]].sum(0)={t_l:.3f} ms "
+          f"({payload / t_k / 1e9:.2f} TB/s gathered payload, "
+          f"{nbytes / t_k / 1e9:.2f} TB/s of the {nbytes / 1e6:.1f} MB the "
+          f"function must move) by mode: "
+          + ", ".join(f"{m} {t:.3f} ms ({payload / t / 1e9:.2f} TB/s)"
+                      for m, t in t_modes.items())
+          + f"; plain={t_p:.3f} ms win[t][idx[t]].sum(0)={t_l:.3f} ms "
           f"bound={b:.4f} ms by {by}", flush=True)
+    # device-memory bytes of one slab-mode call: each window read once
+    # (its slabs), the sums written once; the indices once per slab, from
+    # L2 after the first
+    for mode, plan in modes.items():
+        if not plan.width:
+            continue
+        idx_l2 = idx.numel() * 4 * plan.slabs
+        print(f"[p2 probe] {mode}: {plan.slabs} slab blocks per tile of "
+              f"{plan.smem / 1024:.0f} KB shared memory; device memory "
+              f"moves {nbytes / 1e6:.1f} MB a call, the blocks read "
+              f"{idx_l2 / 1e6:.1f} MB of indices from L2; "
+              f"{bank_wavefronts(idx, plan.width):.3f} shared-memory "
+              f"wavefronts per quarter warp of gathers with these indices "
+              f"(1 = no bank conflict); with a conflict-free index (every "
+              f"row gathers itself) {t_id[mode]:.3f} ms "
+              f"({payload / t_id[mode] / 1e9:.2f} TB/s)", flush=True)
     rows["window_gather_sum"] = {"max_abs_err": 0.0, "ms": t_k,
                                  "plain_ms": t_p, "library_ms": t_l,
                                  "bound_ms": b, "bound_by": by}
@@ -667,7 +836,8 @@ def main():
           flush=True)
     for name, log in kernels.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "Compiling entry function" in line:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
 
     # 2. kernels on edge cases

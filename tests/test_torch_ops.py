@@ -263,13 +263,18 @@ def _topk_case(seed, counts, k, quant, tail=37):
     return keys, logits, np.asarray(k, np.int32)
 
 
-@pytest.mark.parametrize("case", ["ties", "edges", "63_batches"])
+@pytest.mark.parametrize("case", ["ties", "edges", "63_batches",
+                                  "main_path_form"])
 def test_topk_mask_matches_jax(case):
     if case == "ties":
         keys, logits, k = _topk_case(14, [300, 500], [120, 250], 1.0)
     elif case == "edges":  # k = 0, k = count, k > count, k < 0
         keys, logits, k = _topk_case(15, [50, 60, 70, 80], [0, 60, 500, -2],
                                      2.0)
+    elif case == "main_path_form":
+        # as the decoder calls it: one populated batch among maxb = 64,
+        # every other k = 0, tie-heavy logits with -0.0 and +0.0
+        keys, logits, k = _topk_case(19, [3000], [1111] + [0] * 63, 0.5)
     else:
         rng = np.random.default_rng(16)
         counts = rng.integers(1, 60, 63)

@@ -108,11 +108,25 @@ def test_window_gather_matches_pallas():
     scripts/prof_pallas_gather.py:37-53, interpreted) and against the
     script's own numpy reference (:57-61): exact in f32, since all three
     add the 27 gathered rows in tap order from zero."""
-    S, K, T, ntiles = 64, 128, 27, 3
-    rng = np.random.default_rng(0)
+    _window_gather_case(S=64, K=128, seed=0)
+
+
+def test_window_gather_ragged_width_matches_pallas():
+    """K = 12: ragged against the kernel's 8-float slabs (a 4-wide last
+    slab on the card); the same exact agreement, with rows of -0.0."""
+    _window_gather_case(S=48, K=12, seed=1, negative_zero=True)
+
+
+def _window_gather_case(S, K, seed, negative_zero=False):
+    T, ntiles = 27, 3
+    rng = np.random.default_rng(seed)
     win = rng.standard_normal((ntiles, S, K)).astype(np.float32)
+    if negative_zero:
+        win[:, ::5] = -0.0
     idx = rng.integers(0, S, (ntiles, T, S)).astype(np.int32)
     idx[:, 4] = idx[:, 5]  # repeated indices
+    if negative_zero:
+        idx[:, :, ::7] = 0  # every tap reads row 0, all -0.0: sums +0.0
 
     def kern(idx_ref, win_ref, out_ref):
         w = win_ref[0]
@@ -141,6 +155,11 @@ def test_window_gather_matches_pallas():
     np.testing.assert_array_equal(
         window_gather_sum_plain(torch.from_numpy(win[:1]),
                                 torch.from_numpy(idx[:1])).numpy()[0], refacc)
+    # bit for bit with the numpy sum from zero: a sum of -0.0 rows is
+    # +0.0 (XLA folds the Pallas kernel's zero start away and gives -0.0,
+    # equal in value, which is all assert_array_equal asks above)
+    np.testing.assert_array_equal(got[0].view(np.int32),
+                                  refacc.view(np.int32))
 
 
 def test_wrappers_need_the_card_for_cuda_tensors():

@@ -54,10 +54,12 @@ _SIGNATURES = {
                           _P, _I64, _I64, _P, _P],
     },
     "topk_mask": {
-        # keys, logits, k, n, maxb, hist, prefix, krem, counts, blk,
-        # out_mask, stream
-        "upcc_topk_mask": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P,
-                           _P],
+        # keys, logits, k, n, maxb, resident, grid, per_block, histograms,
+        # tie totals, out_mask, stream
+        "upcc_topk_mask": [_P, _P, _P, _I64, _I64, ctypes.c_int, _I64, _I64,
+                           _P, _P, _P, _P],
+        # resident, maxb, per_block, out smem bytes, out blocks per SM
+        "upcc_topk_fit": [ctypes.c_int, _I64, _I64, _P, _P],
     },
     "compact": {
         # keep, n, m, src, block_counts, stream
@@ -74,8 +76,9 @@ _SIGNATURES = {
                               _I64, _I64, ctypes.c_int, _I64, _I64, _P, _P],
     },
     "window_gather_sum": {
-        # win, idx, tiles, s_rows, k, taps, out, stream
-        "upcc_window_gather_sum": [_P, _P, _I64, _I64, _I64, _I64, _P, _P],
+        # win, idx, tiles, s_rows, k, taps, slab width, out, stream
+        "upcc_window_gather_sum": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P,
+                                   _P],
     },
 }
 
@@ -83,6 +86,7 @@ LAUNCHES = {name: 0 for name in SOURCES}
 RECORD = None
 BUILD_LOG = {}
 _libs = {}
+_limits = {}
 # the codec runs groups and frames on worker threads: the counts and the
 # first-use build are shared by them
 _count_lock = threading.Lock()
@@ -167,13 +171,28 @@ def lib(name):
     return handle
 
 
+def device_limits(device):
+    """(SMs, shared memory bytes a block may opt in to) of the card that
+    holds ``device``."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    limits = _limits.get(index)
+    if limits is None:
+        props = torch.cuda.get_device_properties(index)
+        limits = _limits[index] = (props.multi_processor_count,
+                                   props.shared_memory_per_block_optin)
+    return limits
+
+
 def check(err, what):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
 def stream_ptr(tensor):
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    """The current CUDA stream of the tensor's device, as an int, without
+    building the Stream object ``torch.cuda.current_stream`` returns."""
+    return torch._C._cuda_getCurrentRawStream(tensor.device.index)
 
 
 def require_cuda(tensor, dtype, ndim, what):

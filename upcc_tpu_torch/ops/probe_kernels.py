@@ -10,6 +10,8 @@ launches its kernel (``csrc/tile_tapconv.cu``, ``csrc/window_gather.cu``);
 on a CPU tensor it runs the plain version beside it.
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -88,9 +90,31 @@ def window_gather_sum_plain(win, idx):
     return acc
 
 
-def window_gather_sum(win, idx):
-    """Kernel P2 on the card; equal to the plain version bit for bit (same
-    summation order)."""
+class WindowPlan(NamedTuple):
+    width: int  # slab width in floats (8 or 4); 0: streaming mode
+    slabs: int  # column slabs of a window (blocks per tile), 0 streaming
+    last: int   # width of the last slab (4 where K % 8 == 4 at width 8)
+    smem: int   # dynamic shared memory bytes of one slab block
+
+
+def window_plan(s_rows, k, smem_optin):
+    """Launch plan of kernel P2 for windows of ``s_rows`` rows of ``k``
+    floats (k % 4 == 0): the widest slab, 8 or 4 floats (never wider than
+    the row), whose S x width f32 fits ``smem_optin`` bytes of shared
+    memory, a ragged last slab 4 wide; streaming mode where not even a
+    4-wide slab fits."""
+    for width in (8, 4):
+        if width <= k and s_rows * width * 4 <= smem_optin:
+            slabs = -(-k // width)
+            return WindowPlan(width, slabs, k - (slabs - 1) * width,
+                              s_rows * width * 4)
+    return WindowPlan(0, 0, 0, 0)
+
+
+def window_gather_sum(win, idx, plan=None):
+    """Kernel P2 on the card with ``plan`` (a ``WindowPlan``; default
+    ``window_plan`` for the card); equal to the plain version bit for bit
+    (same summation order)."""
     if not win.is_cuda:
         return window_gather_sum_plain(win, idx)
     kernels.require_cuda(win, torch.float32, 3, "window_gather_sum win")
@@ -104,8 +128,11 @@ def window_gather_sum(win, idx):
     out = torch.empty_like(win)
     if win.numel() == 0:
         return out
+    if plan is None:
+        plan = window_plan(s_rows, k, kernels.device_limits(win.device)[1])
     kernels.count_launch("window_gather_sum", win, idx)
     kernels.check(kernels.lib("window_gather_sum").upcc_window_gather_sum(
-        win.data_ptr(), idx.data_ptr(), tiles, s_rows, k, taps,
-        out.data_ptr(), kernels.stream_ptr(win)), "window_gather_sum")
+        win.data_ptr(), idx.data_ptr(), tiles, s_rows, k, taps, plan.width,
+        out.data_ptr(), kernels.stream_ptr(win)),
+        "window_gather_sum")
     return out

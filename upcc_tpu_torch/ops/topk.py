@@ -4,8 +4,13 @@ Radix select: 4 passes of 256-bin per-batch histograms walk down the
 32-bit order-preserving image of the logits to the exact k-th largest
 value of every batch; ties at the threshold are filled by position (first
 wins), identically on encoder and decoder.  ``topk_mask`` is kernel K2 on
-the card (``csrc/topk.cu``) and ``topk_mask_plain`` on the CPU.
+the card (``csrc/topk.cu``, one cooperative launch planned by
+``topk_plan``) and ``topk_mask_plain`` on the CPU.
 """
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -76,12 +81,87 @@ def topk_mask_plain(keys, logits, k_per_batch):
     return gt | fill
 
 
-def topk_mask(st: SparseTensor, logits, k_per_batch):
+# csrc/topk.cu: a block takes 4096 candidates a step, keeps 256-bin
+# histograms of a window of 4 batches and 5 int32 arrays per batch in
+# shared memory, and, resident, 6 bytes per candidate of its slice (on the
+# card the wrapper holds a plan's shared memory to the library's count)
+TOPK_CHUNK = 4096
+TOPK_WIN = 4
+TOPK_STATIC_SMEM = 1024  # bytes kept for the kernel's static shared memory
+
+
+class TopkPlan(NamedTuple):
+    resident: bool   # slices kept in shared memory (else re-read per phase)
+    grid: int        # blocks, one per SM at most, all resident at once
+    per_block: int   # candidates of one block's slice, a multiple of 4096
+    smem: int        # dynamic shared memory bytes of one block
+    hist: int        # int32 histogram words, kept zero: 4 passes x maxb x 256
+
+
+def topk_smem(maxb, per_block, resident):
+    """Dynamic shared memory of one K2 block."""
+    per_batch = 4 * (-(-5 * maxb // 4) * 4)  # 5 int32 arrays, 16-aligned
+    return (TOPK_WIN * 256 * 4 + per_batch
+            + (6 * per_block if resident else 0))
+
+
+@functools.lru_cache(maxsize=256)
+def topk_plan(n, maxb, sm_count, smem_optin):
+    """Launch plan of kernel K2 for n candidates and maxb batches on a card
+    with ``sm_count`` SMs whose blocks may opt in to ``smem_optin`` bytes of
+    shared memory: one block per SM, each over an equal slice rounded up to
+    4096 candidates; resident when a slice fits the shared memory left."""
+    per_block = max(1, -(-n // (sm_count * TOPK_CHUNK))) * TOPK_CHUNK
+    room = (smem_optin - TOPK_STATIC_SMEM - topk_smem(maxb, 0, False)) \
+        // 6 // TOPK_CHUNK * TOPK_CHUNK
+    resident = per_block <= room
+    grid = max(1, -(-n // per_block))
+    return TopkPlan(resident, grid, per_block,
+                    topk_smem(maxb, per_block, resident), 4 * 256 * maxb)
+
+
+_fits = {}  # (device, resident, maxb, per_block) -> (smem, blocks per SM)
+# (device index, stream) -> int32 buffers on that stream, grown as needed:
+# K2's histograms, which it leaves zero (calls on one stream run one after
+# another), and its per-block tie totals, which need no initial value
+_hist = {}
+_totals = {}
+
+
+def _check_fit(plan, maxb, device, sms):
+    """Ask the library (once per shape) for the shared memory of the plan's
+    blocks, which must be the planner's, and how many fit an SM: a
+    cooperative grid must be resident at once."""
+    key = (device, plan.resident, maxb, plan.per_block)
+    if key not in _fits:
+        smem, blocks = ctypes.c_int64(), ctypes.c_int64()
+        kernels.check(kernels.lib("topk_mask").upcc_topk_fit(
+            int(plan.resident), maxb, plan.per_block, ctypes.byref(smem),
+            ctypes.byref(blocks)), "upcc_topk_fit")
+        _fits[key] = smem.value, blocks.value
+    smem, blocks = _fits[key]
+    if plan.smem != smem:
+        raise ValueError(f"topk_mask: the plan's {plan.smem} bytes of shared "
+                         f"memory differ from the kernel's {smem}")
+    if plan.grid > blocks * sms:
+        raise ValueError(f"topk_mask: grid {plan.grid} exceeds the "
+                         f"{blocks} x {sms} blocks the card holds at once")
+
+
+def _buffer(store, key, size, device):
+    buf = store.get(key)
+    if buf is None or buf.numel() < size:
+        buf = store[key] = torch.zeros(size, dtype=torch.int32, device=device)
+    return buf
+
+
+def topk_mask(st: SparseTensor, logits, k_per_batch, plan=None):
     """Boolean mask of the top-k(batch) logits within each batch.
 
     st: the candidate set (its keys give validity and batch); logits: f32
     [N]; k_per_batch: int [maxb].  Invalid slots never win; k <= 0 keeps
-    nothing.  On CUDA tensors this launches kernel K2."""
+    nothing.  On CUDA tensors this launches kernel K2 with ``plan`` (a
+    ``TopkPlan``; default ``topk_plan`` for the card)."""
     keys = st.keys
     if not keys.is_cuda:
         return topk_mask_plain(keys, logits, k_per_batch)
@@ -93,22 +173,22 @@ def topk_mask(st: SparseTensor, logits, k_per_batch):
     if logits.shape[0] != n or not 1 <= maxb <= 1024 or n >= 2 ** 31:
         raise ValueError("topk_mask: logits must match keys, 1 <= maxb <= "
                          "1024, n < 2^31")
-    dev = keys.device
-    nblk = max(1, -(-n // 4096))  # one tie count per 4096-row tile (topk.cu)
-    hist = torch.empty(maxb * 256, dtype=torch.int32, device=dev)
-    prefix = torch.empty(maxb, dtype=torch.int64, device=dev)
-    krem = torch.empty(maxb, dtype=torch.int64, device=dev)
-    counts = torch.empty(4 * maxb, dtype=torch.int64, device=dev)
-    blk = torch.empty(2 * nblk, dtype=torch.int32, device=dev)
-    out = torch.empty(n, dtype=torch.bool, device=dev)
+    out = torch.empty(n, dtype=torch.bool, device=keys.device)
     if n == 0:
         return out
+    sms, optin = kernels.device_limits(keys.device)
+    if plan is None:
+        plan = topk_plan(n, maxb, sms, optin)
+    _check_fit(plan, maxb, keys.device, sms)
+    stream = kernels.stream_ptr(keys)
+    key = (keys.device.index, stream)
+    hist = _buffer(_hist, key, plan.hist, keys.device)
+    totals = _buffer(_totals, key, plan.grid, keys.device)
     kernels.count_launch("topk_mask", keys, logits, k32)
     kernels.check(kernels.lib("topk_mask").upcc_topk_mask(
         keys.data_ptr(), logits.data_ptr(), k32.data_ptr(), n, maxb,
-        hist.data_ptr(), prefix.data_ptr(), krem.data_ptr(),
-        counts.data_ptr(), blk.data_ptr(), out.data_ptr(),
-        kernels.stream_ptr(keys)), "topk_mask")
+        int(plan.resident), plan.grid, plan.per_block, hist.data_ptr(),
+        totals.data_ptr(), out.data_ptr(), stream), "topk_mask")
     return out
 
 
