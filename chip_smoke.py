@@ -14,7 +14,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      beyond the source, and rows placed elsewhere in a larger call being
      bit-equal), K2 topk_mask in both of its modes (resident and
      streaming, on the same inputs, and streaming by shape at 40M
-     candidates) and K3 compact (exact), P1 tile_tapconv in both operand
+     candidates) and K3 compact (bit for bit: empty input and output, none
+     and all kept, m past n, 9 payloads in two launches, 1-, 3- and
+     1200-byte rows, payloads at odd byte offsets, and a run of calls on
+     one stream with n and payload counts growing and shrinking), P1
+     tile_tapconv in both operand
      types (tolerances at P1_TOL) and P2 window_gather_sum in its slab mode
      (8- and 4-float slabs, ragged widths) and its streaming mode (exact,
      bit for bit);
@@ -30,8 +34,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      the prepared weights the codec used against the dense stack built from
      the layer's parameter; K2 in both modes), timed (kernel, plain, one
      library call or call sequence doing the same work as yardstick) beside
-     its roofline bound; one call of K2 under torch.profiler, whose device
-     operations (at most K2_MAX_DEVICE_OPS) are listed;
+     its roofline bound; one call of K2 and of K3 under torch.profiler,
+     whose device operations (at most K2_MAX_DEVICE_OPS and
+     K3_MAX_DEVICE_OPS) are listed;
   5. the two probe entry points (upcc_tpu_torch.probes) at their published
      shapes, launch counts zeroed just before; then P1 and P2 on the same
      full arrays against their plain versions, timed beside a library call
@@ -40,7 +45,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   6. the lossless path at full width: compress(geom="coded") -> decompress
      at block 1024 and block 512; every stage's context bins equal on both
      sides, the decoded voxel set equal to the input's, K1 and K3 launched;
-     stage times, bpp with the occupancy streams' share, peak memory;
+     stage times, bpp with the occupancy streams' share, peak memory; K3
+     on one coded frame's 9 recorded calls, checked and timed as in phase
+     4 without the profiler (`[k3 coded]`);
   7. compress_multi at three q's and compress_stream / decompress_stream
      at depth 2 over three frames, byte-identical to the sequential calls
      and timed beside them; refit_colors (affine + residual layer) with
@@ -71,6 +78,7 @@ from upcc_tpu_torch.models.layers import _TapConv
 from upcc_tpu_torch.models.unified import UnifiedModel
 from upcc_tpu_torch.ops import coords as C
 from upcc_tpu_torch.ops import family as F
+from upcc_tpu_torch.ops import sparse
 from upcc_tpu_torch.ops.probe_kernels import (WindowPlan, tile_tapconv,
                                               tile_tapconv_plain,
                                               window_gather_sum,
@@ -324,26 +332,91 @@ def check_topk(gen):
 
 
 def check_compact(gen):
+    """K3 bit-equal to its plain version on edge cases: empty input and
+    output, none and all kept, m past n, 9 payloads (two launches), 1-, 3-
+    and 1200-byte rows, payloads at odd byte offsets (narrower units), and
+    a run of calls on one stream whose n and payload counts grow and
+    shrink (stale status words would show)."""
     dev = "cuda"
-    for n, m, p in ((1 << 21, 700000, 0.5), (100003, 2048, 0.9),
-                    (5000, 6000, 0.3)):
+
+    def keys_of(n):
         keys = torch.sort(torch.randint(0, 1 << 50, (n,), generator=gen,
                                         device=dev)).values
-        keys[-n // 10:] = C.SENTINEL
+        keys[n - n // 10:] = C.SENTINEL
+        return keys
+
+    def payload(n, kind):
+        if kind == "f32x128":
+            a = torch.randn((n, 128), generator=gen, device=dev)
+            a[::7] = -0.0
+            return a
+        if kind == "bf16x32":
+            return torch.randn((n, 32), generator=gen, device=dev).to(
+                torch.bfloat16)
+        if kind == "i32":
+            return torch.randint(0, 1 << 30, (n,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+        if kind == "boolx3":
+            return torch.rand((n, 3), generator=gen, device=dev) < 0.5
+        if kind == "u8":
+            return torch.randint(0, 256, (n,), generator=gen, device=dev,
+                                 dtype=torch.uint8)
+        if kind == "f32x300":  # 1200-byte rows: 75 units over 32 lanes
+            return torch.randn((n, 300), generator=gen, device=dev)
+        if kind == "i64x2":
+            return torch.randint(-(1 << 40), 1 << 40, (n, 2), generator=gen,
+                                 device=dev)
+        # views at byte offsets 1, 2 and 4: 1-, 1- and 4-byte units
+        width, offset, dtype = {"u8x5@1": (5, 1, torch.uint8),
+                                "bf16x8@2": (8, 2, torch.bfloat16),
+                                "f32x4@4": (4, 4, torch.float32)}[kind]
+        size = torch.tensor([], dtype=dtype).element_size()
+        raw = torch.randint(0, 256, (offset + n * width * size,),
+                            generator=gen, device=dev, dtype=torch.uint8)
+        view = raw[offset:].view(dtype).view(n, width)
+        assert view.data_ptr() % 16 == offset and view.is_contiguous()
+        return view
+
+    def bits(t):
+        return t.flatten().view(torch.uint8)
+
+    def check(name, n, m, p, kinds):
+        keys = keys_of(n)
         keep = torch.rand(n, generator=gen, device=dev) < p
-        pay = (torch.randn((n, 128), generator=gen, device=dev),
-               torch.randn((n, 32), generator=gen, device=dev)
-               .to(torch.bfloat16),
-               torch.randint(0, 1 << 30, (n,), generator=gen, device=dev,
-                             dtype=torch.int32),
-               torch.rand((n, 3), generator=gen, device=dev) < 0.5)
-        got = compact(keys, keep, *pay, out_capacity=m)
-        ref = compact_plain(keys, keep, *pay, out_capacity=m)
+        arrays = [payload(n, k) for k in kinds]
+        got = compact(keys, keep, *arrays, out_capacity=m)
+        ref = compact_plain(keys, keep, *arrays, out_capacity=m)
         torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, ref))
-        print(f"[k3] n={n} m={m} kept={int(keep.sum())} payloads=4 "
-              f"equal={same}", flush=True)
-        assert same, "compact differs from its plain version"
+        same = len(got) == len(ref) and all(
+            a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(bits(a), bits(b)) for a, b in zip(got, ref))
+        print(f"[k3] {name}: n={n} m={m} kept={int(keep.sum())} "
+              f"payloads={len(kinds)} rows [{payload_rows(keys, arrays)}] "
+              f"bit-equal={same}", flush=True)
+        assert same, f"compact ({name}) differs from its plain version"
+
+    four = ["f32x128", "bf16x32", "i32", "boolx3"]
+    check("random", 1 << 21, 700000, 0.5, four)
+    check("random, small m", 100003, 2048, 0.9, four)
+    check("random, m > n", 5000, 6000, 0.3, four)
+    check("n = 0", 0, 1000, 0.5, four)
+    check("m = 0", 10000, 0, 0.5, four)
+    check("none kept", 300000, 200000, 0.0, four)
+    check("all kept, m < n", 300000, 123457, 1.0, four)
+    check("all kept, m > n", 300001, 400000, 1.0, four)
+    check("keys only", 77777, 50000, 0.6, [])
+    check("9 payloads: two launches", 200000, 150000, 0.7,
+          four + ["u8", "f32x300", "i64x2", "bf16x8@2", "u8x5@1"])
+    check("1- and 3-byte rows, odd offsets", 123456, 100000, 0.4,
+          ["u8", "boolx3", "u8x5@1", "bf16x8@2", "f32x4@4"])
+    # one stream, n and payload counts growing and shrinking
+    for i, (n, m, p, count) in enumerate((
+            (5000, 5000, 0.5, 1), (3_000_000, 1_000_000, 0.4, 9),
+            (4096, 2000, 0.9, 0), (1 << 21, 600000, 0.3, 3),
+            (1000, 3000, 0.5, 2), (4_194_304, 1_048_576, 0.26, 1))):
+        check(f"sequence {i}", n, m, p,
+              (four + ["u8", "f32x300", "i64x2", "bf16x8@2", "u8x5@1"])
+              [:count])
 
 
 # P1 tolerances, as a share of max|plain|.  bf16 operands: kernel and plain
@@ -352,10 +425,11 @@ def check_compact(gen):
 # each), the plain version multiplies in full f32; over a sum of 27 * K_in
 # products of random sign that is a few 1e-4 of the largest output.
 P1_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-3}
-# K2 runs as one cooperative kernel (at most one memset of scratch beside
-# it is allowed); None lifts the check (to profile an older kernel with
-# the same script)
+# K2 runs as one cooperative kernel, K3 as one single-pass kernel (at most
+# one memset of scratch beside either is allowed); None lifts the check
+# (to profile an older kernel with the same script)
 K2_MAX_DEVICE_OPS = 2
+K3_MAX_DEVICE_OPS = 2
 
 
 def check_tile_tapconv(gen):
@@ -528,11 +602,42 @@ def measure_recorded(record, layer_of):
                 f"topk_mask ran {len(ops)} device operations in one call"
         add("topk_mask", 0.0, t_k, t_p, t_l, nbytes, 0)
 
-    for keys, keep, arrays, m in record.get("compact", []):
+    for t_k, t_p, t_l, nbytes in measure_compact(record.get("compact", []),
+                                                 "main"):
+        add("compact", 0.0, t_k, t_p, t_l, nbytes, 0)
+    return rows
+
+
+def payload_rows(keys, arrays):
+    """Each payload's row bytes and, where the package plans K3, the bytes
+    a lane moves at once and the lanes that move one row."""
+    rows = [int(np.prod(a.shape[1:])) * a.element_size() for a in arrays]
+    plan_of = getattr(sparse, "compact_plan", None)
+    if plan_of is None:
+        return ", ".join(f"{r} B" for r in rows)
+    plan = plan_of(keys.shape[0], keys.shape[0], tuple(
+        (r, sparse.alignment(a)) for r, a in zip(rows, arrays)),
+        *kernels.device_limits(keys.device))
+    return ", ".join(f"{r} B x{u} ({lanes} lanes)" for r, u, lanes in
+                     zip(rows, plan.units, plan.lanes))
+
+
+def measure_compact(calls, tag, profile=True):
+    """K3 on recorded calls: bit-equal to its plain version, timed beside
+    the plain version, the library doing the same work and the bound; with
+    ``profile``, each call's device operations under torch.profiler (at
+    most K3_MAX_DEVICE_OPS).  Yields (kernel, plain, library ms, bytes).
+    The coded frame's calls are not profiled: late in a run, after the
+    probes, torch.profiler on the H100 host has delivered windows without
+    any device record (twice in five runs), which would fail the gate
+    for want of a measurement."""
+    tot = np.zeros(4)
+    for keys, keep, arrays, m in calls:
         got = compact(keys, keep, *arrays, out_capacity=m)
         ref = compact_plain(keys, keep, *arrays, out_capacity=m)
         assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
-            "compact differs on a main-path call"
+            f"compact differs on a recorded call ({tag})"
+        del got, ref
         t_k = cuda_time(lambda: compact(keys, keep, *arrays,
                                         out_capacity=m), 10)
         t_p = cuda_time(lambda: compact_plain(keys, keep, *arrays,
@@ -545,12 +650,26 @@ def measure_recorded(record, layer_of):
         # the function needs keep, the kept rows (up to m) and the m outputs
         kept = min(int(keep.sum()), m)
         nbytes = n + kept * (8 + row) + m * (8 + row)
-        print(f"[k3 main] n={n} m={m} payloads={len(arrays)} "
-              f"kernel={t_k:.3f} ms plain={t_p:.3f} ms a[keep][:m] for keys "
-              f"and payloads={t_l:.3f} ms "
-              f"bound={bound_ms(nbytes, 0)[0]:.4f} ms", flush=True)
-        add("compact", 0.0, t_k, t_p, t_l, nbytes, 0)
-    return rows
+        b = bound_ms(nbytes, 0)[0]
+        line = (f"[k3 {tag}] n={n} m={m} kept={kept} payloads={len(arrays)} "
+                f"rows [{payload_rows(keys, arrays)}] kernel={t_k:.3f} ms "
+                f"plain={t_p:.3f} ms a[keep][:m] for keys and payloads="
+                f"{t_l:.3f} ms bound={b:.4f} ms")
+        if profile:
+            ops = device_ops(lambda: compact(keys, keep, *arrays,
+                                             out_capacity=m))
+            print_ops(f"k3 ops {tag}", ops)
+            line += (f" device ops per call={len(ops)} "
+                     f"({sum(op[2] for op in ops):.1f} us busy)")
+            if K3_MAX_DEVICE_OPS is not None:
+                assert 0 < len(ops) <= K3_MAX_DEVICE_OPS, \
+                    f"compact ran {len(ops)} device operations in one call"
+        print(line, flush=True)
+        tot += (t_k, t_p, t_l, b)
+        yield t_k, t_p, t_l, nbytes
+    print(f"[k3 {tag}] {len(calls)} calls: kernel={tot[0]:.3f} ms "
+          f"plain={tot[1]:.3f} ms library={tot[2]:.3f} ms "
+          f"bound={tot[3]:.4f} ms", flush=True)
 
 
 CODEC_KERNELS = ("tap_gemm", "topk_mask", "compact")
@@ -687,9 +806,23 @@ def voxel_keys(xyz):
     return np.unique((v[:, 0] << 42) | (v[:, 1] << 21) | v[:, 2])
 
 
-def run_coded(codec, frame, q, block_size):
+class RecordOnly(dict):
+    """A ``kernels.RECORD`` that keeps the inputs of the named kernels
+    only."""
+
+    def __init__(self, *names):
+        super().__init__()
+        self.names = names
+
+    def setdefault(self, name, default=None):
+        return super().setdefault(name, default) if name in self.names \
+            else default
+
+
+def run_coded(codec, frame, q, block_size, measure_k3=False):
     """compress(geom="coded") -> decompress: bins equal on both sides at
-    every stage, geometry exactly lossless, K1 and K3 launched."""
+    every stage, geometry exactly lossless, K1 and K3 launched; with
+    measure_k3, K3 on one frame's recorded calls (``[k3 coded]``)."""
     codec.debug, codec.debug_info, codec.debug_bins = True, [], []
     data = codec.compress(frame, q, block_size=block_size, geom="coded")
     rec = codec.decompress(data)
@@ -730,6 +863,17 @@ def run_coded(codec, frame, q, block_size):
     for name in ("tap_gemm", "compact"):
         assert launches[name] > 0, f"{name} was not launched on the coded path"
     assert launches == CODED_LAUNCHES, (launches, CODED_LAUNCHES)
+    if measure_k3:
+        # one more frame recording K3's inputs (only K3's: K1's would hold
+        # every conv input of the frame)
+        kernels.RECORD = RecordOnly("compact")
+        codec.decompress(codec.compress(frame, q, block_size=block_size,
+                                        geom="coded"))
+        calls, kernels.RECORD = kernels.RECORD.get("compact", []), None
+        assert len(calls) == CODED_LAUNCHES["compact"], len(calls)
+        for _ in measure_compact(calls, "coded", profile=False):
+            pass
+        del calls
     blocks, _ = bitstream.read_container(data)
     occ = sum(len(o) for b in blocks for o in b["occ_bytes"])
     met = pc_metrics(frame, rec, 1023)
@@ -962,7 +1106,7 @@ def main():
     launches.update({k: probe_launches[k] for k in probe_rows})
 
     # 6. the lossless path, 7. simulcast, streaming, color refit
-    run_coded(codec, frame, q, 1024)
+    run_coded(codec, frame, q, 1024, measure_k3=True)
     coded_stage_times(codec, frame, q)
     run_coded(codec, frame, q, 512)
     run_serving(codec, frame, data)

@@ -62,19 +62,76 @@ def test_morton_and_keys_match_jax():
         _eq(TC.kernel_offsets(ks), JC.kernel_offsets(ks))
 
 
-@pytest.mark.parametrize("out_capacity", [None, 100, 700])
-def test_compact_matches_jax(out_capacity):
+def _compact_payloads(rng, n, kinds):
+    out = []
+    for kind in kinds:
+        if kind == "f32":
+            a = rng.standard_normal((n, 5)).astype(np.float32)
+            a[::7] = -0.0
+        elif kind == "i32":
+            a = rng.integers(0, 1000, n).astype(np.int32)
+        elif kind == "i32x2":
+            a = rng.integers(-(1 << 30), 1 << 30, (n, 2)).astype(np.int32)
+        elif kind == "bool":
+            a = rng.random(n) < 0.5
+        elif kind == "boolx3":
+            a = rng.random((n, 3)) < 0.5
+        else:  # u8x5
+            a = rng.integers(0, 256, (n, 5)).astype(np.uint8)
+        out.append(a)
+    return out
+
+
+# (out_capacity, keep probability, payload kinds); the first three are
+# the original cases, kept under their ids
+_COMPACT_CASES = {
+    "None": (None, 0.6, ("f32", "i32")),
+    "100": (100, 0.6, ("f32", "i32")),
+    "700": (700, 0.6, ("f32", "i32")),
+    "none_kept": (300, 0.0, ("f32", "i32")),
+    "all_kept": (None, 1.0, ("f32", "i32")),
+    "all_kept_m_lt_n": (333, 1.0, ("f32", "i32")),
+    "m_lt_kept": (50, 0.8, ("f32", "i32x2")),
+    "m_gt_n": (1000, 0.5, ("f32", "i32")),
+    "m_zero": (0, 0.5, ("f32", "i32")),
+    "keys_only": (400, 0.5, ()),
+    "mixed_dtypes": (500, 0.4, ("bool", "boolx3", "i32x2", "u8x5", "f32",
+                                "i32")),
+}
+
+
+@pytest.mark.parametrize("case", list(_COMPACT_CASES))
+def test_compact_matches_jax(case):
+    """compact_plain (what ``compact`` runs on the CPU) against the
+    reference's compact, bit for bit (dtype, shape and bytes)."""
+    out_capacity, p, kinds = _COMPACT_CASES[case]
     rng = np.random.default_rng(1)
     keys = _keys(1, n=500, cap=640)
-    keep = rng.random(640) < 0.6
-    f = rng.standard_normal((640, 5)).astype(np.float32)
-    ii = rng.integers(0, 1000, 640).astype(np.int32)
-    jout = jax.jit(lambda k, m, a, b: JS.compact(
-        k, m, a, b, out_capacity=out_capacity))(keys, keep, f, ii)
-    tout = TS.compact(T(keys), T(keep), T(f), T(ii),
+    keep = rng.random(640) < p
+    arrays = _compact_payloads(rng, 640, kinds)
+    jout = jax.jit(lambda k, m, *a: JS.compact(
+        k, m, *a, out_capacity=out_capacity))(keys, keep, *arrays)
+    tout = TS.compact(T(keys), T(keep), *map(T, arrays),
                       out_capacity=out_capacity)
+    assert len(tout) == len(jout) == 1 + len(kinds)
     for a, b in zip(tout, jout):
-        _eq(a, b)
+        a, b = N(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _eq(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("n,m", [(0, 0), (0, 7), (9, 0)])
+def test_compact_plain_empty(n, m):
+    """Empty input or output (which the reference's gather formulation does
+    not take): SENTINEL keys and zero rows, or nothing."""
+    keys = torch.full((n,), 5, dtype=torch.int64)
+    keep = torch.ones(n, dtype=torch.bool)
+    f = torch.ones((n, 3), dtype=torch.bfloat16)
+    out_keys, out_f = TS.compact_plain(keys, keep, f, out_capacity=m)
+    assert out_keys.shape == (m,) and out_f.shape == (m, 3)
+    assert out_f.dtype == torch.bfloat16 and not out_f.any()
+    assert (out_keys == TC.SENTINEL).all() if n == 0 else \
+        out_keys.numel() == 0
 
 
 def test_down_and_upsample_keys_match_jax():

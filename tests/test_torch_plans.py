@@ -1,11 +1,14 @@
-"""The launch planners of kernels K2 (``ops/topk.py::topk_plan``) and P2
-(``ops/probe_kernels.py::window_plan``): pure Python, so the CPU tests reach
-what the CUDA kernels are launched with — modes, grids, slab widths and
-shared-memory sizes — at fixed SM counts and shared-memory limits."""
+"""The launch planners of kernels K2 (``ops/topk.py::topk_plan``), K3
+(``ops/sparse.py::compact_plan``) and P2 (``ops/probe_kernels.py::window_plan``):
+pure Python, so the CPU tests reach what the CUDA kernels are launched with
+— modes, grids, tiles, vector widths, slab widths and shared-memory sizes —
+at fixed SM counts and shared-memory limits."""
 
 import pytest
+import torch
 
 from upcc_tpu_torch.ops import probe_kernels as PK
+from upcc_tpu_torch.ops import sparse as TS
 from upcc_tpu_torch.ops import topk as TT
 
 H100_SMS, H100_OPTIN = 132, 232448  # SMs, opt-in shared bytes per block
@@ -109,3 +112,106 @@ def test_topk_stream_buffers_keep_tie_totals_apart():
     assert h2.numel() == big.hist > h1.numel() and not h2.any()
     assert TT._buffer(totals, key, big.grid, "cpu") is t1
     assert TT._buffer(hist, key, small.hist, "cpu") is h2
+
+
+@pytest.mark.parametrize("n,m,sms,optin,tile,tiles,tail", [
+    # the main path's three top-k calls on an H100
+    (262_144, 131_072, H100_SMS, H100_OPTIN, 1024, 256, 64),
+    (1_048_576, 262_144, H100_SMS, H100_OPTIN, 1024, 1024, 128),
+    (4_194_304, 1_048_576, H100_SMS, H100_OPTIN, 4096, 1024, 264),
+    # the least n with 4 tiles of 4096 an SM, one less; the same for 2048
+    (527 * 4096 + 1, 1000, H100_SMS, H100_OPTIN, 4096, 528, 1),
+    (527 * 4096, 1000, H100_SMS, H100_OPTIN, 2048, 1054, 1),
+    (527 * 2048 + 1, 5000, H100_SMS, H100_OPTIN, 2048, 528, 3),
+    (527 * 2048, 5000, H100_SMS, H100_OPTIN, 1024, 1054, 3),
+    # nothing to scan (tail blocks only), a few rows, the largest m
+    (0, 1000, H100_SMS, H100_OPTIN, 1024, 0, 1),
+    (5, 5, H100_SMS, H100_OPTIN, 1024, 1, 1),
+    (100, 2 ** 31 - 1, H100_SMS, H100_OPTIN, 1024, 1, 264),
+    # fewer SMs; a shared-memory limit the 4096-row list does not fit
+    (1_000_000, 1_000_000, 16, H100_OPTIN, 4096, 245, 32),
+    (4_194_304, 1000, H100_SMS, 8192, 2048, 2048, 1),
+])
+def test_compact_plan_tiles(n, m, sms, optin, tile, tiles, tail):
+    plan = TS.compact_plan(n, m, (), sms, optin)
+    assert (plan.tile, plan.tiles, plan.tail) == (tile, tiles, tail)
+    assert plan.tile in TS.COMPACT_TILES and plan.tile % TS.COMPACT_THREADS == 0
+    assert plan.tiles * plan.tile >= n > (plan.tiles - 1) * plan.tile
+    assert 1 <= plan.tail <= 2 * sms
+    assert plan.smem == 4 * plan.tile <= optin
+    assert plan.status == plan.tiles
+
+
+@pytest.mark.parametrize("row_bytes,align,unit,lanes", [
+    (512, 16, 16, 32),   # f32 [.., 128]: one warp a row
+    (256, 16, 16, 16),   # bf16 [.., 128]
+    (64, 16, 16, 4),     # bf16 [.., 32]
+    (8, 16, 4, 2),       # int64
+    (4, 16, 4, 1),       # int32
+    (2, 16, 1, 2),
+    (1, 16, 1, 1),       # bool
+    (3, 16, 1, 4),       # bool [.., 3]: 3 of 4 lanes
+    (12, 16, 4, 4),
+    (48, 16, 16, 4),
+    (24, 8, 4, 8),
+    (6, 16, 1, 8),
+    (1200, 16, 16, 32),  # 75 units: 32 lanes loop over the row
+    (2048, 16, 16, 32),
+    (16, 4, 4, 4),       # a view at a 4-byte offset
+    (16, 2, 1, 16),      # a view at a 2-byte offset
+    (5, 1, 1, 8),        # a view at an odd offset
+    (64, 8, 4, 16),
+])
+def test_compact_plan_units(row_bytes, align, unit, lanes):
+    """The widest unit dividing both the row bytes and the pointers, and
+    the power of two of lanes that covers a row's units (at most 32)."""
+    plan = TS.compact_plan(1000, 1000, ((row_bytes, align),), H100_SMS,
+                           H100_OPTIN)
+    assert (plan.units, plan.lanes) == ((unit,), (lanes,))
+    assert row_bytes % unit == 0 and align % unit == 0
+    units = row_bytes // unit
+    assert lanes == 32 or lanes // 2 < units <= lanes
+
+
+@pytest.mark.parametrize("payloads,groups", [
+    (0, ((0, 0),)),          # keys only: one launch
+    (1, ((0, 1),)),
+    (3, ((0, 3),)),          # the finest level's feats and parent links
+    (8, ((0, 8),)),          # as many as one launch's parameters hold
+    (9, ((0, 8), (8, 9))),
+    (17, ((0, 8), (8, 16), (16, 17))),
+])
+def test_compact_plan_splits_past_the_descriptor_limit(payloads, groups):
+    rows = tuple((4 * (i + 1), 16) for i in range(payloads))
+    plan = TS.compact_plan(50_000, 40_000, rows, H100_SMS, H100_OPTIN)
+    assert plan.groups == groups
+    assert all(end - first <= TS.COMPACT_MAX_PAYLOADS
+               for first, end in plan.groups)
+    assert len(plan.units) == len(plan.lanes) == payloads
+
+
+def test_compact_status_words_per_stream():
+    """K3's status words: one buffer per (device, stream), at least one
+    word per tile, a new epoch per launch that no word of another launch
+    carries; growing keeps the epochs rising, other streams have buffers
+    of their own, and the buffer is zeroed when the epochs run out."""
+    store, a, b = {}, (0, 11), (0, 22)
+    small = TS.compact_plan(262_144, 131_072, (), H100_SMS, H100_OPTIN)
+    big = TS.compact_plan(4_194_304, 1_048_576, (), H100_SMS, H100_OPTIN)
+    assert small.status == 256 and big.status == 1024
+    buf1, e1 = TS._status_words(store, a, small.status, "cpu")
+    assert buf1.numel() == 256 and buf1.dtype == torch.int64
+    assert not buf1.any() and e1 == 1
+    buf1.fill_(e1 << 32)  # what a launch leaves behind
+    buf2, e2 = TS._status_words(store, a, small.status, "cpu")
+    assert buf2 is buf1 and e2 == 2
+    grown, e3 = TS._status_words(store, a, big.status, "cpu")
+    assert grown.numel() == 1024 and not grown.any() and e3 == 3
+    other, e_other = TS._status_words(store, b, small.status, "cpu")
+    assert other.data_ptr() != grown.data_ptr() and e_other == 1
+    assert TS._status_words(store, a, small.status, "cpu")[0] is grown
+    # the epochs run out: zeroed, counted from 1 again
+    grown.fill_(-1)
+    store[a][1] = TS.EPOCH_MAX
+    again, e = TS._status_words(store, a, small.status, "cpu")
+    assert again is grown and e == 1 and not again.any()

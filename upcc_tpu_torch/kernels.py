@@ -62,12 +62,12 @@ _SIGNATURES = {
         "upcc_topk_fit": [ctypes.c_int, _I64, _I64, _P, _P],
     },
     "compact": {
-        # keep, n, m, src, block_counts, stream
-        "upcc_compact_index": [_P, _I64, _I64, _P, _P, _P],
-        # keys, src, n, m, out, stream
-        "upcc_compact_keys": [_P, _P, _I64, _I64, _P, _P],
-        # rows, src, n, m, row_bytes, out, stream
-        "upcc_compact_rows": [_P, _P, _I64, _I64, _I64, _P, _P],
+        # keep, keys, out_keys, n, m, tile, tail blocks, status words,
+        # epoch, payloads, payload descriptors, stream
+        "upcc_compact": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _I64, _I64,
+                         _P, _P],
+        # tile, out smem bytes, out blocks per SM
+        "upcc_compact_fit": [_I64, _P, _P],
     },
     "tile_tapconv": {
         # x, x_round, idx, wpack, n_blocks, tap_ptr, blk_k0, rows, k_in,

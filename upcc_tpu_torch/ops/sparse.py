@@ -2,12 +2,18 @@
 
 ``SparseTensor`` is a fixed-capacity, sorted, sentinel-padded array of
 Morton keys plus a feature matrix.  ``compact`` is kernel K3 on the card
-(``csrc/compact.cu``) and its plain PyTorch version on the CPU.
+(``csrc/compact.cu``, one single-pass launch planned by ``compact_plan``)
+and its plain PyTorch version on the CPU.
 """
 
+import array
 import ctypes
 import dataclasses
+import functools
+import math
 import os
+import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -78,47 +84,153 @@ def compact_plain(keys, keep, *arrays, out_capacity=None):
     return (out_keys, *outs)
 
 
+# csrc/compact.cu: blocks of 256 threads, each scanning 4, 8 or 16 keep
+# bytes (a tile of 1024, 2048 or 4096 rows, its kept rows listed in int32
+# shared memory); at most 8 payloads in one launch's parameter struct
+COMPACT_THREADS = 256
+COMPACT_TILES = (4096, 2048, 1024)
+COMPACT_MAX_PAYLOADS = 8
+COMPACT_UNITS = (16, 4, 1)
+COMPACT_TAIL_ROWS = 2048  # output rows per tail block, at least
+EPOCH_MAX = 2 ** 32 - 1   # status words carry a 32-bit epoch
+
+
+class CompactPlan(NamedTuple):
+    tile: int      # keep bytes a block scans: 256 threads x 4, 8 or 16
+    tiles: int     # blocks that scan and move rows: ceil(n / tile)
+    tail: int      # blocks after them that write the rows [total, m)
+    smem: int      # dynamic shared memory of a block: its kept rows, int32
+    status: int    # 64-bit status words a launch uses: one per tile
+    units: tuple   # per payload: bytes a lane moves at once
+    lanes: tuple   # per payload: lanes that move one row together
+    groups: tuple  # (first, end) payloads of each launch, keys in the first
+
+
+def alignment(t):
+    """The largest power of two, at most 16, dividing the tensor's address."""
+    ptr = t.data_ptr() | 16
+    return ptr & -ptr
+
+
+@functools.lru_cache(maxsize=256)
+def compact_plan(n, m, rows, sms, smem_optin):
+    """Launch plan of kernel K3 for n candidates, out_capacity m and
+    payloads with ``rows`` = ((row bytes, alignment of both pointers), ...)
+    on a card with ``sms`` SMs whose blocks may opt in to ``smem_optin``
+    bytes of shared memory.  The largest tile that still gives 4 blocks
+    per SM (the smallest where none does); tail blocks for up to m rows,
+    at most two per SM; per payload the widest unit dividing its row bytes
+    and alignment, and the power of two of lanes covering a row's units
+    (at most 32, which then loop over the row); 8 payloads a launch."""
+    fit = [t for t in COMPACT_TILES if 4 * t <= smem_optin]
+    tile = next((t for t in fit if -(-n // t) >= 4 * sms), fit[-1])
+    units, lanes = [], []
+    for row_bytes, align in rows:
+        unit = next(u for u in COMPACT_UNITS
+                    if row_bytes % u == 0 and align % u == 0)
+        units.append(unit)
+        lanes.append(min(32, 1 << max(0, row_bytes // unit - 1).bit_length()))
+    groups = tuple((i, min(i + COMPACT_MAX_PAYLOADS, len(rows)))
+                   for i in range(0, len(rows), COMPACT_MAX_PAYLOADS))
+    tiles = -(-n // tile)
+    return CompactPlan(tile, tiles,
+                       min(2 * sms, max(1, -(-m // COMPACT_TAIL_ROWS))),
+                       4 * tile, tiles, tuple(units), tuple(lanes),
+                       groups or ((0, 0),))
+
+
+_compact_fits = {}  # (device, tile) -> (smem, blocks per SM)
+# (device index, stream) -> [int64 status words, last epoch handed out]:
+# K3's tile status on that stream, grown as needed; a word counts only in
+# the launch whose epoch it carries, so no launch clears it
+_status = {}
+_status_lock = threading.Lock()
+
+
+def _status_words(store, key, words, device):
+    """The status buffer of ``key`` (at least ``words`` long) and a new
+    epoch for one launch; zeroed when the epochs run out."""
+    with _status_lock:
+        entry = store.get(key)
+        if entry is None or entry[0].numel() < words:
+            entry = store[key] = [
+                torch.zeros(max(words, 1), dtype=torch.int64, device=device),
+                entry[1] if entry is not None else 0]
+        if entry[1] >= EPOCH_MAX:
+            entry[0].zero_()
+            entry[1] = 0
+        entry[1] += 1
+        return entry[0], entry[1]
+
+
+def _check_compact_fit(plan, device):
+    """Ask the library (once per tile size) for a block's shared memory,
+    which must be the planner's, and whether a block fits an SM."""
+    key = (device, plan.tile)
+    if key not in _compact_fits:
+        smem, blocks = ctypes.c_int64(), ctypes.c_int64()
+        kernels.check(kernels.lib("compact").upcc_compact_fit(
+            plan.tile, ctypes.byref(smem), ctypes.byref(blocks)),
+            "upcc_compact_fit")
+        _compact_fits[key] = smem.value, blocks.value
+    smem, blocks = _compact_fits[key]
+    if plan.smem != smem or blocks < 1:
+        raise ValueError(f"compact: the plan's {plan.smem} bytes of shared "
+                         f"memory differ from the kernel's {smem}, or no "
+                         f"block fits an SM ({blocks})")
+
+
 def compact(keys, keep, *arrays, out_capacity=None):
     """Stable compaction: move kept rows to the front, sentinel/zero the tail.
 
     keys: sorted int64 [n]; keep: bool [n]; arrays: payloads with n rows.
     Output rows are truncated at ``out_capacity`` (default n).  Because the
     input keys are sorted and the compaction is stable, the output stays
-    sorted.  On a CUDA tensor this launches kernel K3; on a CPU tensor it
-    runs ``compact_plain``."""
+    sorted.  On a CUDA tensor this launches kernel K3 (one launch for up to
+    8 payloads, planned by ``compact_plan``); on a CPU tensor it runs
+    ``compact_plain``."""
     if not keys.is_cuda:
         return compact_plain(keys, keep, *arrays, out_capacity=out_capacity)
     n = keys.shape[0]
     m = out_capacity if out_capacity is not None else n
     kernels.require_cuda(keys, torch.int64, 1, "compact keys")
     kernels.require_cuda(keep, torch.bool, 1, "compact keep")
-    if keep.shape[0] != n or n >= 2 ** 31 or m >= 2 ** 31:
+    if keep.shape[0] != n or n >= 2 ** 31 or not 0 <= m < 2 ** 31:
         raise ValueError("compact: keep must match keys; n, m < 2^31")
+    dev = keys.device
     for a in arrays:
-        if not a.is_cuda or not a.is_contiguous() or a.shape[0] != n:
-            raise ValueError("compact: payloads must be contiguous CUDA "
-                             "tensors with one row per key")
+        if a.device != dev or not a.is_contiguous() or a.shape[0] != n:
+            raise ValueError("compact: payloads must be contiguous tensors on "
+                             "the keys' device with one row per key")
+    out_keys = torch.empty(m, dtype=torch.int64, device=dev)
+    outs = [torch.empty((m,) + a.shape[1:], dtype=a.dtype, device=dev)
+            for a in arrays]
+    # zero-width payloads have nothing to move
+    moving = [(a, o, math.prod(a.shape[1:]) * a.element_size())
+              for a, o in zip(arrays, outs)]
+    moving = [(a, o, rb) for a, o, rb in moving if rb]
+    if m == 0:
+        return (out_keys, *outs)
+    plan = compact_plan(n, m, tuple((rb, min(alignment(a), alignment(o)))
+                                    for a, o, rb in moving),
+                        *kernels.device_limits(dev))
+    _check_compact_fit(plan, dev)
     lib = kernels.lib("compact")
     stream = kernels.stream_ptr(keys)
-    nblk = max(1, -(-n // 4096))  # one count per 4096-row tile (compact.cu)
-    src = torch.empty(max(m, 1), dtype=torch.int32, device=keys.device)
-    blk = torch.empty(nblk, dtype=torch.int32, device=keys.device)
     kernels.count_launch("compact", keys, keep, arrays, m)
-    kernels.check(lib.upcc_compact_index(keep.data_ptr(), n, m,
-                                         src.data_ptr(), blk.data_ptr(),
-                                         stream), "compact index")
-    out_keys = torch.empty(m, dtype=torch.int64, device=keys.device)
-    kernels.check(lib.upcc_compact_keys(keys.data_ptr(), src.data_ptr(), n,
-                                        m, out_keys.data_ptr(), stream),
-                  "compact keys")
-    outs = []
-    for a in arrays:
-        out = torch.empty((m,) + a.shape[1:], dtype=a.dtype, device=a.device)
-        row_bytes = a[0].numel() * a.element_size() if n else 0
-        kernels.check(lib.upcc_compact_rows(a.data_ptr(), src.data_ptr(), n,
-                                            m, row_bytes, out.data_ptr(),
-                                            stream), "compact rows")
-        outs.append(out)
+    for first, end in plan.groups:
+        desc = array.array("q")
+        for i in range(first, end):
+            a, o, rb = moving[i]
+            desc.extend((a.data_ptr(), o.data_ptr(), rb, plan.units[i],
+                         plan.lanes[i]))
+        status, epoch = _status_words(_status, (dev.index, stream),
+                                      plan.status, dev)
+        kernels.check(lib.upcc_compact(
+            keep.data_ptr(), keys.data_ptr() if first == 0 else None,
+            out_keys.data_ptr() if first == 0 else None, n, m, plan.tile,
+            plan.tail, status.data_ptr(), epoch, end - first,
+            desc.buffer_info()[0], stream), "compact")
     return (out_keys, *outs)
 
 
