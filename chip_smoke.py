@@ -51,7 +51,31 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   7. compress_multi at three q's and compress_stream / decompress_stream
      at depth 2 over three frames, byte-identical to the sequential calls
      and timed beside them; refit_colors (affine + residual layer) with
-     decompress(new container) equal to the returned reconstruction.
+     decompress(new container) equal to the returned reconstruction;
+  8. ``[jax stream]``: the committed stream written by the JAX package
+     (tests/fixtures/jax_stream_flagship.upcc, made by
+     tests/fixtures/make_jax_stream.py) decoded by the port on the card
+     and compared with the JAX decode committed beside it: counts, whether
+     identical, else how many points differ and the first block that
+     diverges.  Reported, not asserted (the scale indexes come from floats
+     and the card uses bf16 operands); a decode that raises is reported as
+     such; a missing or unreadable fixture fails the run;
+  9. ``[region]``: region-candidate g_s at the widths of
+     configs/ablation/abl_region5.yaml on a seeded init (no committed
+     weights), the same frame at q=(0.5, 0.5), block 1024: encoder/decoder
+     bit-exact, decoded count = sum of k[2], no conv preparing weights
+     during the frame, launches per frame 19/3/3; every K1, K2 and K3
+     call of the region decode against its plain version and timed;
+     candidate counts per level, dec.synthesis ms, peak memory and one
+     decode's device time by operation (torch.profiler);
+ 10. ``[eval]``: the evaluation driver (upcc_tpu_torch.evaluate) on the
+     flagship for longdress (rebuilt from its seed) at block 1024 and
+     q = (0, 0), (0.5, 0.5), (1, 1), color refit on, native PCQM at
+     200,000 points, written to a temporary results directory; each row
+     beside the committed results/CVPR_inverse_scaling/test.csv row of the
+     same (sequence, q_g, q_a), with the differences (reported, not
+     gated); the row's 23 columns, 760,000 points and synthetic=1 are
+     asserted.
 The last three lines are the nvidia-smi line, the kernels JSON line and
 the result line {"ok": true, "device": {...}}.
 
@@ -60,10 +84,13 @@ bf16-rounded operands exactly and sum in f32 in different orders, so
 max|kernel - plain| <= 1e-3 * max|plain| + 1e-5.
 """
 
+import csv
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -71,7 +98,7 @@ import torch
 
 from upcc_tpu_torch import kernels
 from upcc_tpu_torch.codec import bitstream
-from upcc_tpu_torch.codec.codec import Codec
+from upcc_tpu_torch.codec.codec import CODEC_MAX_BATCH, Codec
 from upcc_tpu_torch.data.synthetic import surface_cloud
 from upcc_tpu_torch.eval.metrics import pc_metrics
 from upcc_tpu_torch.models.layers import _TapConv
@@ -89,11 +116,17 @@ from upcc_tpu_torch.ops.topk import (topk_mask, topk_mask_plain, topk_plan,
                                      topk_smem)
 from upcc_tpu_torch.probes import (PEAK_BF16, PEAK_BYTES, PEAK_TF32,
                                    micro_gather, window_gather)
-from upcc_tpu_torch.weights import FLAGSHIP_CONFIG, load_weights
+from upcc_tpu_torch.profile_codec import _device_us
+from upcc_tpu_torch.weights import (ABL_REGION5_CONFIG, FLAGSHIP_CONFIG,
+                                    load_weights)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-WEIGHTS = os.path.join(HERE, "results", "CVPR_inverse_scaling",
-                       "weights_bf16.msgpack")
+EXPERIMENT = os.path.join(HERE, "results", "CVPR_inverse_scaling")
+WEIGHTS = os.path.join(EXPERIMENT, "weights_bf16.msgpack")
+JAX_STREAM = os.path.join(HERE, "tests", "fixtures",
+                          "jax_stream_flagship.upcc")
+JAX_DECODED = os.path.join(HERE, "tests", "fixtures",
+                           "jax_stream_flagship_decoded.npy")
 REPLACES = {
     "tap_gemm": ("upcc_tpu_torch/csrc/tap_gemm.cu",
                  "upcc_tpu/ops/family.py:610"),
@@ -516,8 +549,12 @@ def bank_wavefronts(idx, width):
 
 # -- phase 4: recorded main-path calls ---------------------------------------
 
-def measure_recorded(record, layer_of):
-    """layer_of: id(prepared plan) -> (layer, call shape) it was made for."""
+def measure_recorded(record, layer_of, tag="main", profile=True):
+    """Every recorded call against its plain version, timed beside the
+    plain version, the library yardstick and the bound.  layer_of:
+    id(prepared plan) -> (layer, call shape) it was made for.  With
+    ``profile``, one call of K2 and each K3 call under torch.profiler
+    (device operations gated)."""
     rows = {}
 
     def add(name, err, t_k, t_p, t_l, nbytes, flops):
@@ -544,7 +581,7 @@ def measure_recorded(record, layer_of):
         err = float((got - ref).abs().max())
         tol = 1e-3 * float(ref.abs().max()) + 1e-5
         assert err <= tol, "tap_gemm disagrees with its plain version on " \
-            "a main-path call"
+            f"a {tag}-path call"
         del got, ref
         t_k = cuda_time(lambda: F.tap_gemm(flat, idx, ok, plan), 5)
         t_p = cuda_time(lambda: F.tap_gemm_plain(flat, idx, ok, w), 2)
@@ -558,7 +595,7 @@ def measure_recorded(record, layer_of):
         flops = float(2 * (ok.sum(0).double() * nnz).sum())
         nbytes = (flat.numel() * 2 + w.numel() * 2 + idx.numel() * 4
                   + ok.numel() + rows_ * w.shape[-1] * 4)
-        print(f"[k1 main] rows={rows_} K_in={w.shape[1]} K_out={w.shape[2]} "
+        print(f"[k1 {tag}] rows={rows_} K_in={w.shape[1]} K_out={w.shape[2]} "
               f"BN={plan.bn} listed_blocks={plan.n_blocks} "
               f"err={err:.3e} kernel={t_k:.3f} ms plain={t_p:.3f} ms "
               f"matmul={t_l:.3f} ms bound={bound_ms(nbytes, flops)[0]:.4f} ms",
@@ -573,7 +610,7 @@ def measure_recorded(record, layer_of):
         for mode, plan in modes.items():
             got = topk_mask(st, logits, k, plan=plan)
             assert torch.equal(got, ref), \
-                f"topk_mask ({mode}) differs on a main-path call"
+                f"topk_mask ({mode}) differs on a {tag}-path call"
             t_modes[mode] = cuda_time(
                 lambda: topk_mask(st, logits, k, plan=plan), 10)
         t_k = cuda_time(lambda: topk_mask(st, logits, k), 10)
@@ -587,23 +624,26 @@ def measure_recorded(record, layer_of):
         t_l = cuda_time(lambda: torch.topk(seg, kk), 10)
         n = keys.shape[0]
         nbytes = n * (8 + 4 + 1) + k.numel() * 4
-        ops = device_ops(lambda: topk_mask(st, logits, k))
-        print_ops("k2 ops", ops)
+        ops = device_ops(lambda: topk_mask(st, logits, k)) if profile \
+            else None
+        if profile:
+            print_ops("k2 ops", ops)
         plan = next(iter(modes.values()))
-        print(f"[k2 main] n={n} maxb={k.shape[0]} kept={int(ref.sum())} "
+        print(f"[k2 {tag}] n={n} maxb={k.shape[0]} kept={int(ref.sum())} "
               f"kernel={t_k:.3f} ms ("
               + ", ".join(f"{m} {t:.3f}" for m, t in t_modes.items())
               + f"; grid={plan.grid} per_block={plan.per_block}) "
               f"plain={t_p:.3f} ms torch.topk={t_l:.3f} ms "
-              f"bound={bound_ms(nbytes, 0)[0]:.4f} ms "
-              f"device ops per call={len(ops)}", flush=True)
-        if K2_MAX_DEVICE_OPS is not None:
+              f"bound={bound_ms(nbytes, 0)[0]:.4f} ms"
+              + (f" device ops per call={len(ops)}" if profile else ""),
+              flush=True)
+        if profile and K2_MAX_DEVICE_OPS is not None:
             assert 0 < len(ops) <= K2_MAX_DEVICE_OPS, \
                 f"topk_mask ran {len(ops)} device operations in one call"
         add("topk_mask", 0.0, t_k, t_p, t_l, nbytes, 0)
 
     for t_k, t_p, t_l, nbytes in measure_compact(record.get("compact", []),
-                                                 "main"):
+                                                 tag, profile):
         add("compact", 0.0, t_k, t_p, t_l, nbytes, 0)
     return rows
 
@@ -876,7 +916,7 @@ def run_coded(codec, frame, q, block_size, measure_k3=False):
         del calls
     blocks, _ = bitstream.read_container(data)
     occ = sum(len(o) for b in blocks for o in b["occ_bytes"])
-    met = pc_metrics(frame, rec, 1023)
+    met = pc_metrics(frame, rec, 1023, with_d2=False)
     print(f"[coded] block {block_size}: blocks={len(blocks)} stage records="
           f"{len(enc)} candidates={ncand} bins equal on both sides; voxels="
           f"{len(src)} decoded={rec.shape[0]} key sets equal; encode="
@@ -940,7 +980,7 @@ def run_serving(codec, frame, data_topk):
     del seq_rec, str_rec
 
     rec = codec.decompress(data_topk)
-    before = pc_metrics(frame, rec, 1023)["sym_y_psnr"]
+    before = pc_metrics(frame, rec, 1023, with_d2=False)["sym_y_psnr"]
     t0 = time.time()
     new, fixed = codec.refit_colors(data_topk, frame, rec=rec,
                                     resid_lam=12800.0)
@@ -952,7 +992,7 @@ def run_serving(codec, frame, data_topk):
     assert np.array_equal(again, fixed), \
         "decompress(refit container) differs from the returned reconstruction"
     assert np.array_equal(again[:, :3], rec[:, :3])
-    after = pc_metrics(frame, again, 1023)["sym_y_psnr"]
+    after = pc_metrics(frame, again, 1023, with_d2=False)["sym_y_psnr"]
     resid = blocks[0].get("color_resid")
     print(f"[refit] affine={'yes' if blocks[0].get('color_affine') is not None else 'no'} "
           f"residual layer={len(resid) if resid else 0} B: container "
@@ -960,6 +1000,278 @@ def run_serving(codec, frame, data_topk):
           f"({len(new) * 8 / len(frame):.4f} bpp), Y_PSNR {before:.3f} -> "
           f"{after:.3f} dB, fit {t_fit:.2f} s; decompress(new) equals the "
           f"returned reconstruction", flush=True)
+
+
+# -- phase 8: a stream written by the JAX package -----------------------------
+
+def load_jax_stream():
+    """The committed JAX-written fixture: (container bytes, its blocks, the
+    JAX decode as uint8 [N, 6] = xyz, rgb * 255).  Raises when a file is
+    missing, the container does not parse, or the decode's shape does not
+    match the container's counts."""
+    with open(JAX_STREAM, "rb") as f:
+        data = f.read()
+    blocks, _ = bitstream.read_container(data)
+    ref = np.load(JAX_DECODED)
+    if ref.dtype != np.uint8 or ref.ndim != 2 or ref.shape[1] != 6 \
+            or len(ref) != sum(b["k"][2] for b in blocks):
+        raise ValueError(f"{JAX_DECODED}: {ref.dtype} {ref.shape} does not "
+                         f"match the container's counts")
+    return data, blocks, ref
+
+
+def compare_decodes(rec, ref, blocks):
+    """A decoded float cloud [N, 6] against the uint8 reference decode:
+    counts, whether identical (same rows in the same order), the points
+    only in one of the two, and the first block (by the container's
+    origins) whose points differ."""
+    got = np.concatenate([rec[:, :3], np.round(rec[:, 3:6] * 255.0)],
+                         1).astype(np.int64)
+    want = ref.astype(np.int64)
+    out = {"decoded": len(got), "reference": len(want),
+           "identical": got.shape == want.shape
+           and bool(np.array_equal(got, want))}
+    if out["identical"]:
+        return out
+    rows_got = set(map(tuple, got.tolist()))
+    rows_want = set(map(tuple, want.tolist()))
+    vox_got = {r[:3] for r in rows_got}
+    vox_want = {r[:3] for r in rows_want}
+    out["only_decoded"] = len(rows_got - rows_want)
+    out["only_reference"] = len(rows_want - rows_got)
+    out["voxels_only_one"] = len(vox_got ^ vox_want)
+    out["first_block"] = None
+    for i, b in enumerate(blocks):
+        lo = np.asarray(b["origin"], np.int64)
+        hi = lo + (8 << b["levels"])
+
+        def inside(a):
+            return a[np.all((a[:, :3] >= lo) & (a[:, :3] < hi), axis=1)]
+        if not np.array_equal(inside(got), inside(want)):
+            out["first_block"] = i
+            break
+    return out
+
+
+def _decode_indexes(codec, data):
+    """(decoded cloud, the y scale indexes the decoder derived), from one
+    decode with the codec's debug record on."""
+    codec.debug, codec.debug_info = True, []
+    try:
+        rec = codec.decompress(data)
+        idx = np.concatenate([d["y_idx"] for d in codec.debug_info
+                              if d["side"] == "dec"])
+    finally:
+        codec.debug, codec.debug_info = False, []
+    return rec, idx
+
+
+def jax_stream_report(codec, f32_codec=None):
+    """Decode the JAX-written fixture with ``codec``; one report line.  A
+    decode that raises is the reported result; a bad fixture raises.  With
+    ``f32_codec`` (the port on the CPU, in f32 as the stream was written)
+    the line also says how many of the y scale indexes ``codec`` derives
+    differ from the f32 ones, and where the first one lies: the y symbols
+    decode against those indexes, so the first difference is where the
+    rANS stream desyncs."""
+    data, blocks, ref = load_jax_stream()
+    head = (f"[jax stream] {JAX_STREAM.split(os.sep)[-1]}: {len(data)} B, "
+            f"{len(blocks)} block(s), JAX decoded {len(ref)} points")
+    try:
+        rec, idx = _decode_indexes(codec, data)
+    except Exception as exc:  # the measurement: reported, not raised
+        return f"{head}; the port's decode raised {exc!r}"
+    r = compare_decodes(rec, ref, blocks)
+    line = (f"{head}; the port decoded {r['decoded']} points, identical to "
+            f"the JAX decode: {r['identical']}")
+    if not r["identical"]:
+        line += (f"; {r['only_decoded']} points only in the port's decode, "
+                 f"{r['only_reference']} only in JAX's "
+                 f"({r['voxels_only_one']} voxels in one decode only); "
+                 f"first diverging block: {r['first_block']}")
+    if f32_codec is not None:
+        rec32, idx32 = _decode_indexes(f32_codec, data)
+        same32 = compare_decodes(rec32, ref, blocks)["identical"]
+        diff = np.flatnonzero(idx != idx32)
+        line += (f"; the port in f32 on the CPU: identical to the JAX "
+                 f"decode: {same32}, and {len(diff)} of {len(idx)} y scale "
+                 f"indexes differ from it (max |difference| "
+                 f"{int(np.abs(idx - idx32).max()) if len(diff) else 0}"
+                 + (f", the first at y element {int(diff[0])}" if len(diff)
+                    else "") + ")")
+    return line
+
+
+# -- phase 9: region-candidate g_s ---------------------------------------------
+
+REGION_SEED = 5
+# launches per frame: the same layer structure as the flagship's (K1: g_a
+# 4, h_a 3, h_s 1 on encode; h_s 1, g_s's 5^3 conv, three transposes and
+# six head convs on decode), every level outside grandparent layout
+REGION_LAUNCHES = {"tap_gemm": 19, "topk_mask": 3, "compact": 3}
+
+
+def run_region(frame, q):
+    """Region-candidate g_s through the codec (abl_region5's widths, the
+    port's own initialization under a fixed seed: the ablation has no
+    committed weights): gates, then every recorded kernel call of the
+    decode against its plain version.  Returns the kernel rows of
+    measure_recorded."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(REGION_SEED)
+        model = UnifiedModel(dict(ABL_REGION5_CONFIG,
+                                  max_batch=CODEC_MAX_BATCH))
+    codec = Codec(model, device="cuda")
+    codec.update()
+    assert not codec.model.g_s.grand_finest
+    codec.debug, codec.debug_info = True, []
+    data = codec.compress(frame, q, block_size=1024)
+    rec = codec.decompress(data)
+    codec.debug = False
+    enc = [d for d in codec.debug_info if d["side"] == "enc"]
+    dec = [d for d in codec.debug_info if d["side"] == "dec"]
+    assert len(enc) == len(dec) >= 1
+    for e, d in zip(enc, dec):
+        for key in ("y_keys", "z_sym", "y_idx", "y_sym", "scales", "means"):
+            assert np.array_equal(e[key], d[key]), \
+                f"region: encoder/decoder {key} differ"
+    codec.debug_info = []
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    prepared_before = F.PREPARE_CALLS
+    t0 = time.time()
+    data2 = codec.compress(frame, q, block_size=1024)
+    t_enc = time.time() - t0
+    t0 = time.time()
+    rec2 = codec.decompress(data2)
+    torch.cuda.synchronize()
+    t_dec = time.time() - t0
+    launches = codec_launches()
+    peak = torch.cuda.max_memory_allocated()
+    assert data2 == data and np.array_equal(rec2, rec), \
+        "region: the codec is not deterministic"
+    blocks, _ = bitstream.read_container(data)
+    k_sum = sum(b["k"][2] for b in blocks)
+    assert rec.shape[0] == k_sum, (rec.shape, k_sum)
+    assert np.isfinite(rec).all() and rec.shape[1] == 6
+    assert F.PREPARE_CALLS == prepared_before, \
+        "region: a conv prepared its weights during the frame"
+    assert launches == REGION_LAUNCHES, (launches, REGION_LAUNCHES)
+
+    codec.profile, codec.stage_times = True, {}
+    try:
+        codec.decompress(data)
+    finally:
+        codec.profile = False
+    synth_ms = codec.stage_times["dec.synthesis"] * 1e3
+
+    # where the decode's device time goes (one decode under the profiler)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        codec.decompress(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and _device_us(e) > 0), key=_device_us, reverse=True)
+    busy = sum(_device_us(e) for e in events) / 1e3
+    k1 = sum(_device_us(e) for e in events if "tap_mainloop" in e.key) / 1e3
+    print(f"[region] one decode under torch.profiler: wall {wall * 1e3:.1f} "
+          f"ms, device busy {busy:.1f} ms, of which K1 {k1:.3f} ms; top "
+          "device operations:", flush=True)
+    for e in events[:8]:
+        print(f"[region]   {_device_us(e) / 1e3:8.3f} ms {e.count:6d}x "
+              f"{e.key[:90]}", flush=True)
+
+    # the decode once more, recording its kernel calls
+    kernels.RECORD = {}
+    codec.decompress(data)
+    record, kernels.RECORD = kernels.RECORD, None
+    for lvl, (keys, _logits, k) in enumerate(record["topk_mask"]):
+        n_valid = int(C.key_is_valid(keys).sum())
+        print(f"[region] level {lvl}: {keys.shape[0]} candidate slots "
+              f"(8 x {keys.shape[0] // 8} dilated parents), {n_valid} "
+              f"covered candidates, keep {int(k.sum())}", flush=True)
+    met = pc_metrics(frame, rec, 1023, with_d2=False)
+    print(f"[region] block 1024: decoded={rec.shape[0]} (= sum k[2] {k_sum}) "
+          f"encoder/decoder bit-exact; encode={t_enc:.3f} s "
+          f"decode={t_dec:.3f} s dec.synthesis={synth_ms:.2f} ms "
+          f"(synchronized stage) bpp={len(data) * 8 / len(frame):.4f} "
+          f"D1_PSNR={met['sym_psnr_mse']:.3f} dB "
+          f"Y_PSNR={met['sym_y_psnr']:.3f} dB (seeded init, no training) "
+          f"max_memory_allocated={peak / 2**30:.2f} GiB launches={launches} "
+          f"conv weights prepared during the frame=0", flush=True)
+    convs = [m for m in codec.model.modules() if isinstance(m, _TapConv)]
+    layer_of = {id(plan): (m, kind) for m in convs
+                for kind, (_, plan) in m._plans.items()}
+    rows = measure_recorded(record, layer_of, tag="region", profile=False)
+    for name, r in rows.items():
+        print(f"[region] {name}: {len(record.get(name, []))} calls, "
+              f"kernel={r['ms']:.3f} ms plain={r['plain_ms']:.3f} ms "
+              f"library={r['library_ms']:.3f} ms bound={r['bound_ms']:.4f} "
+              f"ms max_abs_err={r['max_abs_err']:.3e}", flush=True)
+    return rows
+
+
+# -- phase 10: the evaluation driver -----------------------------------------
+
+EVAL_SEQUENCE = "longdress"
+EVAL_QS = [(0.0, 0.0), (0.5, 0.5), (1.0, 1.0)]
+EVAL_KEYS = ("bpp", "sym_psnr_mse", "sym_y_psnr", "sym_d2_psnr", "pcqm")
+
+
+def run_eval():
+    """The port's driver on the flagship (a copy of the experiment in a
+    temporary results directory), longdress at three q's, each row beside
+    the committed one."""
+    from upcc_tpu_torch import evaluate
+    with open(os.path.join(EXPERIMENT, "test.csv"), newline="") as f:
+        reader = csv.DictReader(f)
+        committed_cols = reader.fieldnames
+        committed = {(r["sequence"], float(r["q_g"]), float(r["q_a"])): r
+                     for r in reader}
+    tmp = tempfile.mkdtemp(prefix="upcc_eval_")
+    try:
+        exp = os.path.join(tmp, os.path.basename(EXPERIMENT))
+        os.makedirs(exp)
+        for name in ("config.yaml", "weights_bf16.msgpack",
+                     "weights_bf16.msgpack.meta.json"):
+            shutil.copy2(os.path.join(EXPERIMENT, name), exp)
+        t0 = time.time()
+        evaluate.run_testset([os.path.basename(EXPERIMENT)],
+                             sequences=[EVAL_SEQUENCE], results_path=tmp,
+                             with_renders=False, q_points=EVAL_QS,
+                             device="cuda")
+        secs = time.time() - t0
+        with open(os.path.join(exp, "test.csv"), newline="") as f:
+            reader = csv.DictReader(f)
+            cols = reader.fieldnames
+            rows = list(reader)
+    finally:
+        shutil.rmtree(tmp)
+    assert cols == committed_cols and len(cols) == 23, cols
+    assert len(rows) == len(EVAL_QS)
+    for r in rows:
+        ref = committed[(r["sequence"], float(r["q_g"]), float(r["q_a"]))]
+        assert r["num_points"] == ref["num_points"] == "760000"
+        assert r["synthetic"] == "1"
+        vals = {k: float(r[k]) for k in EVAL_KEYS}
+        assert all(np.isfinite(v) for v in vals.values()), vals
+        print(f"[eval] {r['sequence']} q=({r['q_g']}, {r['q_a']}): "
+              + " ".join(f"{k}={vals[k]:.4f} (committed "
+                         f"{float(ref[k]):.4f}, diff "
+                         f"{vals[k] - float(ref[k]):+.4f})"
+                         for k in EVAL_KEYS)
+              + f"; t_compress={float(r['t_compress']):.2f} s "
+              f"t_decompress={float(r['t_decompress']):.2f} s", flush=True)
+    print(f"[eval] {len(rows)} rows in {secs:.1f} s (frame, source "
+          f"structures, codec and host metrics); columns equal the "
+          f"committed test.csv's {len(cols)}", flush=True)
 
 
 # -- main ----------------------------------------------------------------------
@@ -1061,7 +1373,7 @@ def main():
     assert F.PREPARE_CALLS == prepared_before, \
         "a conv prepared its weights during the frame (stale or missing plan)"
     bpp = len(data) * 8 / len(frame)
-    met = pc_metrics(frame, rec, 1023)
+    met = pc_metrics(frame, rec, 1023, with_d2=False)
     print(f"[codec] block 1024: points={len(frame)} decoded={rec.shape[0]} "
           f"(= sum k[2] {k_sum}) encode={t_enc:.3f} s decode={t_dec:.3f} s "
           f"bpp={bpp:.4f} D1_PSNR={met['sym_psnr_mse']:.3f} dB "
@@ -1100,6 +1412,14 @@ def main():
     for r in rows.values():
         r["bound_by"] = "bytes" if r["t_bytes"] >= r["t_ops"] else "operations"
 
+    # 8. the JAX-written stream on the card, 9. region-candidate g_s
+    f32_codec = Codec(load_weights(UnifiedModel(FLAGSHIP_CONFIG), WEIGHTS),
+                      device="cpu")
+    f32_codec.update()
+    print(jax_stream_report(codec, f32_codec), flush=True)
+    del f32_codec
+    run_region(frame, q)
+
     # 5. the probe entry points and their two kernels
     probe_rows, probe_launches = run_probes()
     rows.update(probe_rows)
@@ -1110,6 +1430,9 @@ def main():
     coded_stage_times(codec, frame, q)
     run_coded(codec, frame, q, 512)
     run_serving(codec, frame, data)
+
+    # 10. the evaluation driver against the committed RD rows
+    run_eval()
 
     out = []
     for name, (src, replaces) in REPLACES.items():

@@ -281,3 +281,83 @@ def test_decompress_rejects_unported_layers(codecs):
     with pytest.raises((ValueError, RuntimeError)) as exc:
         tc.decompress(TB.write_container(None, [b]))
     assert not isinstance(exc.value, NotImplementedError)
+
+
+def test_compress_path_argument(codecs, frame, tmp_path):
+    """compress(pointcloud, q, path=None, block_size=...) in the JAX
+    codec's order: with a path the container is written there (and None
+    returned, as the JAX codec does), byte-identical to the returned bytes
+    of a call without one; a third positional argument is the path."""
+    jc, tc = codecs
+    q = (0.5, 0.5)
+    data = tc.compress(frame, q, block_size=128)
+    by_kw = tmp_path / "kw.upcc"
+    assert tc.compress(frame, q, path=str(by_kw), block_size=128) is None
+    assert by_kw.read_bytes() == data
+    by_pos = tmp_path / "pos.upcc"
+    assert tc.compress(frame, q, str(by_pos), 128) is None
+    assert by_pos.read_bytes() == data
+    jpath = tmp_path / "jax.upcc"
+    jc.compress(frame, q, str(jpath), 128)
+    jdata = jpath.read_bytes()
+    assert len(data) == pytest.approx(len(jdata), rel=0.01)
+    assert TB.read_container(str(by_pos))[0][0]["k"] == \
+        JB.read_container(jdata)[0][0]["k"]
+
+
+def _chip_smoke():
+    import sys
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    return chip_smoke
+
+
+def test_jax_stream_fixture_is_readable():
+    """The committed JAX-written stream and its JAX decode parse and agree
+    on the point count (a missing or unreadable fixture fails the chip
+    run's [jax stream] phase too)."""
+    cs = _chip_smoke()
+    data, blocks, ref = cs.load_jax_stream()
+    jblocks, _ = JB.read_container(data)
+    assert [b["k"] for b in jblocks] == [b["k"] for b in blocks]
+    assert ref.shape == (sum(b["k"][2] for b in blocks), 6)
+    assert len(data) + ref.nbytes < 64_000
+
+
+def test_decode_comparison_report(codecs, frame):
+    """compare_decodes on the port's own decode: identical to itself; with
+    points moved and recolored it counts them and names the first block
+    that diverges."""
+    cs = _chip_smoke()
+    _, tc = codecs
+    data = tc.compress(frame, (0.5, 0.5), block_size=128)
+    blocks, _ = TB.read_container(data)
+    rec = tc.decompress(data)
+    ref = np.concatenate([rec[:, :3], np.round(rec[:, 3:6] * 255)],
+                         1).astype(np.uint8)
+    assert cs.compare_decodes(rec, ref, blocks) == {
+        "decoded": len(rec), "reference": len(rec), "identical": True}
+    second = np.flatnonzero(rec[:, 0] >= 128)
+    bad = rec.copy()
+    bad[second[:3], 3] = 1.0 - bad[second[:3], 3]   # recolored
+    bad[second[3], 1] += 1000                       # moved
+    r = cs.compare_decodes(bad, ref, blocks)
+    assert not r["identical"] and r["first_block"] == 1
+    assert r["only_decoded"] == r["only_reference"] == 4
+    assert r["voxels_only_one"] == 2
+
+
+@pytest.mark.slow
+def test_jax_stream_decodes_under_the_port_on_cpu():
+    """The committed JAX-written flagship stream through the port's CPU
+    codec (f32, as the stream was written): the same report the chip run
+    prints as [jax stream]; reported, not asserted."""
+    from upcc_tpu_torch.weights import FLAGSHIP_CONFIG, load_weights
+    cs = _chip_smoke()
+    model = load_weights(TModel(dict(FLAGSHIP_CONFIG, max_batch=64)),
+                         cs.WEIGHTS)
+    codec = TCodec(model, device="cpu")
+    codec.update()
+    line = cs.jax_stream_report(codec, codec)
+    print("\n" + line)
+    assert "0 of" in line and "raised" not in line

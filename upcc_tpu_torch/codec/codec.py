@@ -102,7 +102,8 @@ def _z_hs_caps(n_s16, n_z):
 
 class Codec:
     """``Codec(model, device="cuda")``; call ``update()`` once, then
-    ``compress(pointcloud, q, block_size)`` and ``decompress(data)``."""
+    ``compress(pointcloud, q, path=None, block_size=1024)`` and
+    ``decompress(data)``."""
 
     def __init__(self, model, device="cuda"):
         self.device = resolve_device(device)
@@ -168,10 +169,11 @@ class Codec:
             raise ValueError("block_size > 1024 not supported")
 
     @torch.no_grad()
-    def compress(self, pointcloud, q, block_size=1024, scaling_factor=1.0,
-                 geom="topk"):
+    def compress(self, pointcloud, q, path=None, block_size=1024,
+                 scaling_factor=1.0, geom="topk"):
         """pointcloud: numpy [N, 6] (xyz int, rgb in [0, 1]); q: (q_g, q_a).
-        Returns the container bytes.  block_size <= 1024.
+        Returns the container bytes; with ``path``, writes them there and
+        returns None (as the JAX codec does).  block_size <= 1024.
 
         geom: "topk" (the lossy ranked selection) or "coded" — every
         candidate's true occupancy bit is entropy-coded with the learned
@@ -186,7 +188,7 @@ class Codec:
                 self._encode_shared(item[0], item[1], levels), qv, geom),
             groups)
         blocks = [b for r in results for b in r]
-        return bitstream.write_container(None, blocks, scaling_factor)
+        return bitstream.write_container(path, blocks, scaling_factor)
 
     @torch.no_grad()
     def compress_multi(self, pointcloud, qs, block_size=1024,

@@ -8,8 +8,11 @@ previous level, each followed by an occupancy head and a per-batch top-k
 prune to the transmitted k (the finest level in grandparent layout,
 ``grand_finest``), then the 1x1 color conv.
 
-``ext_keep``/``emit_last_logits`` are the coded-occupancy hooks of
-``codec/refine.py``.  Not ported yet: region-candidate mode and the oracle
+``region_candidates`` replaces the 8-child expansion by every child
+position the kernel-5 transpose reaches: the covered children of the
+27-dilated parent set (the candidate-set ablation); it runs every level
+outside grandparent layout.  ``ext_keep``/``emit_last_logits`` are the
+coded-occupancy hooks of ``codec/refine.py``.  Not ported yet: the oracle
 diagnostics.
 """
 
@@ -18,7 +21,8 @@ from torch import nn
 
 from ..ops import coords as C
 from ..ops import family as F
-from ..ops.sparse import SparseTensor, compact, upsample_children_keys
+from ..ops.sparse import (SparseTensor, compact, dilate_keys,
+                          upsample_children_keys)
 from ..ops.topk import topk_mask
 from .gdn import GDN
 from .layers import FamilyConv, FamilyDownConv, FamilyTransposeUp, PointwiseConv
@@ -136,12 +140,20 @@ class SparseSynthesisTransform(nn.Module):
                  region_dilate_factor=3.0, prune_slack=(1.0, 1.0),
                  min_one_child=False, grand_finest=True):
         super().__init__()
-        if region_candidates:
-            raise NotImplementedError("region-candidate g_s is not ported")
+        if min_one_child and region_candidates:
+            # the floor assumes candidates arrive parent-major, 8 per real
+            # parent; the dilated candidate set breaks that layout and would
+            # boost children of empty dilated parents
+            raise ValueError("min_one_child is incompatible with "
+                             "region_candidates (the per-parent floor "
+                             "assumes the 8-child parent-major layout)")
         self.prune_cap_factors = tuple(prune_cap_factors)
         self.prune_slack = tuple(float(s) for s in prune_slack)
         self.min_one_child = min_one_child
-        self.grand_finest = grand_finest
+        self.region_candidates = region_candidates
+        self.region_dilate_factor = float(region_dilate_factor)
+        # region mode never runs the finest level in grandparent layout
+        self.grand_finest = grand_finest and not region_candidates
         self.up1_conv = FamilyConv(N4, N3, 5)
         self.igdn1 = GDN(N3, inverse=True)
         self.specs = [
@@ -152,7 +164,7 @@ class SparseSynthesisTransform(nn.Module):
         for cin, cout, tname, pcin, pchid, pname in self.specs:
             self.add_module(tname, FamilyTransposeUp(cin, cout, 5))
             self.add_module(pname, OccupancyHead(pcin, pchid))
-        if grand_finest:
+        if self.grand_finest:
             # the finest level runs in grandparent layout
             self.up3_t.grand = self.pred3.c1.grand = self.pred3.c2.grand = True
         self.igdn2 = GDN(N2, inverse=True)
@@ -265,12 +277,30 @@ class SparseSynthesisTransform(nn.Module):
                                  out_capacity=caps[lvl])
                 x = SparseTensor(keys=pk, feats=pf, stride=x.stride // 2)
                 continue
-            child_keys = upsample_children_keys(parent_keys)
-            cf = F.child_family(parent_keys, nbr=nbr)
-            cfeats = transpose(nbr, x.feats, x.valid)
-            cvalid = C.key_is_valid(child_keys)
-            parent_nbr_next = nbr
-            n_parents = parent_keys.shape[0]
+            if self.region_candidates:
+                # candidates: every child position the kernel-5 transpose
+                # reaches = the covered children of the 27-dilated parents
+                dcap = int(self.region_dilate_factor * parent_keys.shape[0])
+                d_keys = dilate_keys(parent_keys, dcap)
+                d_nbr = F.root_neighbors(d_keys)
+                cross = F.cross_neighbors(d_keys, parent_keys)
+                child_keys = upsample_children_keys(d_keys)
+                cf = F.child_family(d_keys, nbr=d_nbr)
+                cfeats = transpose(cross, x.feats, x.valid)
+                cover = cross[1].to(torch.float32) @ torch.as_tensor(
+                    F.transpose_cover_table(), dtype=torch.float32,
+                    device=dev)
+                cvalid = C.key_is_valid(child_keys) \
+                    & (cover > 0).reshape(-1)
+                parent_nbr_next = d_nbr
+                n_parents = d_keys.shape[0]
+            else:
+                child_keys = upsample_children_keys(parent_keys)
+                cf = F.child_family(parent_keys, nbr=nbr)
+                cfeats = transpose(nbr, x.feats, x.valid)
+                cvalid = C.key_is_valid(child_keys)
+                parent_nbr_next = nbr
+                n_parents = parent_keys.shape[0]
             # finest level: candidate feats ride bf16 (they only feed the
             # color head), logits stay f32
             cand = SparseTensor(

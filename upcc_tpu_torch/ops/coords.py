@@ -115,6 +115,20 @@ def sentinel_like(keys):
     return torch.full((), SENTINEL, dtype=torch.int64, device=keys.device)
 
 
+def shift_units(keys, delta, scale=1):
+    """Neighbour key arithmetic: decode, apply ``u * scale + delta``
+    (delta a static length-3 tuple of ints), re-encode.  Returns
+    (keys, valid): results outside the coordinate range, and shifts of
+    SENTINEL slots, are SENTINEL and not valid."""
+    b = keys & ~KEY_MASK
+    d = torch.tensor(delta, dtype=torch.int32, device=keys.device)
+    nu = key_units(keys) * scale + d
+    ok = (nu >= 0).all(-1) & (nu < (1 << COORD_BITS)).all(-1) \
+        & key_is_valid(keys)
+    nk = b | morton_encode(nu.clamp(min=0))
+    return torch.where(ok, nk, sentinel_like(keys)), ok
+
+
 def kernel_offsets(kernel_size, ndim=3):
     """Static numpy [K, 3] kernel offset grid, MinkowskiEngine convention:
     odd kernels are centered, even kernels non-negative."""

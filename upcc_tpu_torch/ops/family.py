@@ -252,6 +252,28 @@ def host_root_neighbors(keys_np, levels_down, cap, level_caps=None):
     return keys, idx, found
 
 
+def transpose_cover_table():
+    """Static bool [27, 8]: whether child slot s of an output parent at
+    offset eps from an input parent receives any kernel-5 transpose tap
+    (|slot - 2 eps| <= 2 per axis).  Region-candidate g_s marks with it
+    which children of the dilated parent set the transpose reaches."""
+    tab = np.zeros((27, 8), bool)
+    for ei, e in enumerate(_EPS_OFFSETS):
+        for s in range(8):
+            sv = np.array([(s >> 2) & 1, (s >> 1) & 1, s & 1])
+            if np.all(np.abs(sv - 2 * e) <= 2):
+                tab[ei, s] = True
+    return tab
+
+
+def cross_neighbors(out_parent_keys, in_parent_keys):
+    """27-neighbourhood map (idx int32, found bool) [P_out, 27] from output
+    parents into a *different* sorted input parent set."""
+    nk, _ = _neighbor_queries(out_parent_keys)
+    idx, found = find(in_parent_keys, nk.reshape(-1))
+    return idx.reshape(nk.shape), found.reshape(nk.shape)
+
+
 def build_family(keys, parent_cap=None, parent_keys=None, nbr=None):
     """FamilyMap of a sorted key set.  Pass parent_keys (and optionally a
     precomputed (nbr_idx, nbr_ok)) to skip the dedup and/or the search."""

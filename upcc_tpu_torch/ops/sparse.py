@@ -258,6 +258,37 @@ def upsample_children_keys(keys):
     return child.reshape(-1)
 
 
+def _dedup_sorted(cand, capacity):
+    """Sorted, duplicate-free, SENTINEL-padded keys of ``cand``, clipped to
+    ``capacity``: sort, mark repeats SENTINEL, sort again (torch.sort is
+    the plain implementation here; these run only in region mode)."""
+    cand = torch.sort(cand).values
+    dup = torch.zeros_like(cand, dtype=torch.bool)
+    dup[1:] = cand[1:] == cand[:-1]
+    cand = torch.where(dup & C.key_is_valid(cand), C.sentinel_like(cand),
+                       cand)
+    return torch.sort(cand).values[:capacity]
+
+
+def expand_region_keys(keys, region_offsets, capacity):
+    """Generative expansion: candidates = {2u + d : d in region}, dedup'd.
+    ``region_offsets`` is a static numpy [K, 3] array (e.g.
+    ``coords.kernel_offsets(5)``).  Sorted, clipped to ``capacity``."""
+    cand = torch.stack([C.shift_units(keys, tuple(int(v) for v in d),
+                                      scale=2)[0]
+                        for d in region_offsets], dim=1).reshape(-1)
+    return _dedup_sorted(cand, capacity)
+
+
+def dilate_keys(keys, capacity):
+    """27-neighbourhood dilation of a sorted key set, dedup({u + e,
+    |e| <= 1}); the candidate parents of region-candidate g_s.  Sorted,
+    SENTINEL-padded, clipped to ``capacity``."""
+    cand = torch.stack([C.shift_units(keys, tuple(int(v) for v in d))[0]
+                        for d in C.kernel_offsets(3)], dim=1).reshape(-1)
+    return _dedup_sorted(cand, capacity)
+
+
 _vox_lib = None
 
 

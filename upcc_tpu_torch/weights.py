@@ -35,6 +35,18 @@ FLAGSHIP_CONFIG = {
             "min_one_child": True},
 }
 
+# the model section of configs/ablation/abl_region5.yaml (region-candidate
+# g_s, no committed weights), written out for the same reason; a test holds
+# the two equal
+ABL_REGION5_CONFIG = {
+    "entropy_model": {"C_bottleneck": 32, "C_hyper_bottleneck": 48,
+                      "quantization_mode": "ste", "inverse_rescaling": True,
+                      "quantization_offset": True},
+    "g_a": {"C_in": 4, "N1": 32, "N2": 32, "N3": 32, "N4": 32},
+    "g_s": {"C_out": 3, "N1": 32, "N2": 32, "N3": 32, "N4": 32,
+            "region_candidates": True},
+}
+
 
 class _Reader:
     def __init__(self, data):
