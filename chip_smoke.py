@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the whole check, one card
     python3 chip_smoke.py --kernels  # build + kernel checks only
+    python3 chip_smoke.py --train    # build + K1w checks + phase 11 only
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi); build the CUDA kernels
@@ -75,7 +76,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      beside the committed results/CVPR_inverse_scaling/test.csv row of the
      same (sequence, q_g, q_a), with the differences (reported, not
      gated); the row's 23 columns, 760,000 points and synthetic=1 are
-     asserted.
+     asserted;
+ 11. ``[train]``: the flagship's training step at full width (seeded init)
+     on train frame 0 of make_synth (scan_like_cloud, default_rng(0), 760k
+     points) cut into 128^3 cubes, the packer's fullest batch of 8 cubes
+     at the trainer's auto capacity (131,072 on this set): median
+     step ms of 5 after 2 warm-up steps, peak memory, the
+     launches and weight preparations per step (gated: K1 18 forward + 17
+     dgrad, K1w 18, 35 preparations); every K1 dgrad (K1 on a mirrored
+     plan) and K1w call of one recorded step against its plain version
+     (K1w twice bit-equal), timed with its bound and a library call, K1w
+     also under three other row-chunk policies (WGRAD_POLICIES); the
+     K3 backward's rank gathers timed; one step under torch.profiler
+     (device busy, K1 forward / dgrad / K1w ms and launches); whole-step
+     gradients against the plain autograd path on 2 cubes (tolerances at
+     GRAD_TOL); on a fixed batch over 20 steps, the training loss from a
+     fresh seeded init and the RD loss from the committed weights (both
+     gated to fall); a Training run
+     of 3 steps with validation through real bitstreams at q = (1, 1)
+     (val.csv) and a resume from its checkpoint.  Phase 2 also holds K1w
+     against its plain version on edge cases (bit-equal twice) and K1 on
+     mirrored plans against the plain dgrad.
 The last three lines are the nvidia-smi line, the kernels JSON line and
 the result line {"ok": true, "device": {...}}.
 
@@ -86,6 +107,7 @@ max|kernel - plain| <= 1e-3 * max|plain| + 1e-5.
 
 import csv
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -137,6 +159,8 @@ REPLACES = {
                      "scripts/micro_gather.py:80"),
     "window_gather_sum": ("upcc_tpu_torch/csrc/window_gather.cu",
                           "scripts/prof_pallas_gather.py:37"),
+    "tap_wgrad": ("upcc_tpu_torch/csrc/tap_wgrad.cu",
+                  "upcc_tpu/ops/family.py:610"),
 }
 
 
@@ -288,6 +312,84 @@ def check_tap_gemm(gen):
         print(f"[k1] placement {kind} k{ks}: rows={rows} inside "
               f"{3 * rows + 17} at {at}: bit-equal={same}", flush=True)
         assert same, "tap_gemm depends on where a row sits in its call"
+
+
+def check_tap_wgrad(gen):
+    """K1w against its plain version (the listed blocks of the dense
+    gradient) per call shape, two calls bit-equal; and K1 on a mirrored
+    plan over a self map against the plain dgrad (a scatter)."""
+    dev = "cuda"
+    bf = torch.bfloat16
+
+    def case(name, rows, n_src, kind, ks, cin, cout, p_ok=0.8, edit=None):
+        w = torch.randn((ks ** 3, cin, cout), generator=gen, device=dev)
+        plan = F.prepare_taps(w, kind, ks, bf)
+        idx = torch.randint(0, n_src + 64, (rows, 27), generator=gen,
+                            device=dev, dtype=torch.int32)
+        ok = torch.rand((rows, 27), generator=gen, device=dev) < p_ok
+        if edit is not None:
+            edit(ok)
+        flat = torch.randn((n_src, plan.k_in), generator=gen,
+                           device=dev).to(bf)
+        dacc = torch.randn((rows, plan.k_out), generator=gen,
+                           device=dev).to(bf)
+        got = F.tap_wgrad(flat, idx, ok, dacc, plan)
+        again = F.tap_wgrad(flat, idx, ok, dacc, plan)
+        ref = plan.blocks_of(F.tap_wgrad_plain(flat, idx, ok, dacc))
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = 1e-3 * float(ref.abs().max()) + 1e-5
+        same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+        chunk, chunks = F.wgrad_chunks(rows, plan.n_blocks,
+                                       F._sm_count(flat.device))
+        print(f"[k1w] {kind} k{ks} {name}: rows={rows} K_in={plan.k_in} "
+              f"K_out={plan.k_out} BN={plan.bn} listed_blocks="
+              f"{plan.n_blocks} chunks={chunks}x{chunk} max_abs_err="
+              f"{err:.3e} tol={tol:.3e} two calls bit-equal={same}",
+              flush=True)
+        assert err <= tol, f"tap_wgrad {name} disagrees with its plain version"
+        assert same, f"tap_wgrad {name}: two calls differ"
+        return got
+
+    case("1024->512", 3000, 2500, "conv", 3, 128, 64)
+    case("512->8 (K_out 8)", 1500, 1200, "conv", 3, 64, 1)
+    case("1536->2048 (hs3)", 1024, 4096, "conv", 3, 192, 256)
+    case("1536->1536 (C 192)", 777, 900, "conv", 3, 192, 192)
+    case("1024->128, many chunks", 40000, 20000, "down", 5, 128, 128)
+    case("128->1024, ragged rows", 4100, 4000, "transpose", 5, 128, 128)
+    case("256->1024 (cin 4)", 1000, 1000, "grand_down", 5, 4, 128)
+    case("1024->2048 (cout 32)", 1000, 1000, "grand_transpose", 5, 128, 32)
+    case("2048->1024 (cout 16)", 1001, 1000, "grand_conv", 3, 32, 16)
+    case("1024->64 (cout 1)", 1000, 1000, "grand_conv", 3, 16, 1)
+
+    def sparse_taps(ok):
+        ok[:, 20:] = False
+        ok[:4096, 3:11] = False
+    case("taps missing whole steps", 9000, 800, "conv", 3, 128, 64,
+         edit=sparse_taps)
+    assert not case("all ok = 0", 333, 500, "conv", 3, 64, 64,
+                    edit=lambda ok: ok.zero_()).any()
+
+    # dgrad: K1 on the mirrored plan over a self map of a random key set
+    units = torch.randint(0, 48, (6000, 3), generator=gen, device=dev,
+                          dtype=torch.int32)
+    keys = torch.unique(C.make_keys(torch.zeros(6000, dtype=torch.int64,
+                                                 device=dev), units))
+    idx, ok = F.root_neighbors(keys)
+    for kind, ks, cin, cout in (("conv", 3, 64, 64), ("conv", 5, 128, 128),
+                                ("down", 5, 128, 128)):
+        w = torch.randn((ks ** 3, cin, cout), generator=gen, device=dev)
+        taps = F.prepare_train_taps(w, kind, ks, bf)
+        dacc = torch.randn((keys.shape[0], taps.k_out), generator=gen,
+                           device=dev).to(bf)
+        got = F.tap_gemm(dacc, idx, ok, taps.plan_t())
+        ref = F.tap_dgrad_plain(dacc, idx, ok, taps.plan, keys.shape[0])
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tol = 1e-3 * float(ref.abs().max()) + 1e-5
+        print(f"[k1 dgrad] {kind} k{ks} self map of {keys.shape[0]} keys: "
+              f"max_abs_err={err:.3e} tol={tol:.3e}", flush=True)
+        assert err <= tol, "K1 on the mirrored plan is not the dgrad"
 
 
 def topk_modes(keys, k):
@@ -593,7 +695,7 @@ def measure_recorded(record, layer_of, tag="main", profile=True):
         del stack
         nnz = (w != 0).reshape(taps, -1).sum(1).double()
         flops = float(2 * (ok.sum(0).double() * nnz).sum())
-        nbytes = (flat.numel() * 2 + w.numel() * 2 + idx.numel() * 4
+        nbytes = (flat.numel() * 2 + float(nnz.sum()) * 2 + idx.numel() * 4
                   + ok.numel() + rows_ * w.shape[-1] * 4)
         print(f"[k1 {tag}] rows={rows_} K_in={w.shape[1]} K_out={w.shape[2]} "
               f"BN={plan.bn} listed_blocks={plan.n_blocks} "
@@ -1218,6 +1320,489 @@ def run_region(frame, q):
     return rows
 
 
+# -- phase 11: the flagship's training step ----------------------------------
+
+# the training keys of configs/CVPR_inverse_scaling.yaml, written out (the
+# GPU host has no yaml; a test holds them equal to the file); the model
+# section is weights.FLAGSHIP_CONFIG
+TRAIN_KEYS = {
+    "experiment_name": "CVPR_inverse_scaling",
+    "min_points_train": 300,
+    "min_points_test": 0,
+    "transforms": {"train": {
+        "1_ColorJitter": {"key": "ColorJitter"},
+        "2_Rotate": {"key": "RandomRotate", "block_size": 128}}},
+    "q_map": {"lambda_A_min": 0, "lambda_A_max": 12800, "lambda_G_min": 0,
+              "lambda_G_max": 200, "mode": "quadratic", "corner_p": 0.15},
+    "epochs": 300,
+    "batch_size": 8,
+    "batch_bucketing": True,
+    "model_learning_rate": 0.0001,
+    "bottleneck_learning_rate": 0.001,
+    "optimizer": "Adam",
+    "scheduler_step_size": 130,
+    "scheduler_gamma": 0.1,
+    "clip_grad_norm": 1.0,
+    "val_every": 10,
+    "loss": {
+        "Multiscale_FocalLoss": {"type": "Multiscale_FocalLoss",
+                                 "alpha": 0.5, "gamma": 2.0},
+        "ColorLoss": {"type": "ColorLoss", "loss": "L2"},
+        "bpp-y": {"type": "BPPLoss", "key": "y", "weight": 1.0},
+        "bpp-z": {"type": "BPPLoss", "key": "z", "weight": 1.0}},
+}
+# K1w's row-chunk policies timed on the recorded calls: the wrapper's
+# (enough (block, chunk) pairs for 16 thread blocks an SM), 4 and 64 an SM,
+# and one chunk a call (no partial sums)
+_KEPT = F.wgrad_chunks
+WGRAD_POLICIES = {
+    "kept": _KEPT,
+    "4 an SM": lambda rows, nb, sms: _KEPT(rows, nb, sms // 4),
+    "64 an SM": lambda rows, nb, sms: _KEPT(rows, nb, 4 * sms),
+    "one chunk": lambda rows, nb, sms: (
+        -(-rows // F.WGRAD_ROWS) * F.WGRAD_ROWS, 1),
+}
+TRAIN_TIMED_STEPS = 5
+TRAIN_FALL_STEPS = 20
+# whole-step gradients, kernels against the plain autograd path, on a
+# batch of 2 cubes (the plain path holds every gathered block), by L2
+# norms: over all parameters ||kernel - plain|| <= GRAD_TOL * ||plain||,
+# and per parameter tensor <= GRAD_TOL_EACH times its own norm.  Both
+# routes multiply bf16-rounded operands but round gradients to bf16 at
+# other places: the kernel route rounds each conv's output gradient before
+# its dgrad and wgrad (relative 2^-9), autograd only the gradient of each
+# bf16 input.  Over all parameters the first chip runs measured
+# 4.9e-4 - 5.5e-4.  Per tensor the worst is h_a's first layer, whose
+# gradient reaches it only through z's rounding and cancels to a few % of
+# its terms: 1.6e-2 to 6.3e-2 between runs (a layer computed wrong is off
+# by its whole norm)
+GRAD_TOL = 1e-2
+GRAD_TOL_EACH = 0.25
+GRAD_BATCH = 2
+
+
+def train_config(root):
+    cfg = {k: (dict(v) if isinstance(v, dict) else v)
+           for k, v in TRAIN_KEYS.items()}
+    cfg["model"] = {k: dict(v) for k, v in FLAGSHIP_CONFIG.items()}
+    cfg["results_path"] = os.path.join(root, "results")
+    cfg["data_path"] = os.path.join(root, "data")
+    return cfg
+
+
+def make_train_data(root):
+    """The training set of one vox10 frame: train frame 0 of make_synth
+    (scan_like_cloud, default_rng(0), extent 1024, 760,000 points) cut into
+    128^3 cubes; the same frame whole as the validation set."""
+    from upcc_tpu_torch.data.dataset import slice_into_cubes, write_split
+    from upcc_tpu_torch.data.synthetic import scan_like_cloud
+    xyz, rgb = scan_like_cloud(np.random.default_rng(0), extent=1024,
+                               n_target=760_000)
+    cubes = slice_into_cubes(xyz, rgb, 128)
+    data = os.path.join(root, "data")
+    os.makedirs(data)
+    write_split(os.path.join(data, "train.npz"), [c[0] for c in cubes],
+                [c[1] for c in cubes])
+    write_split(os.path.join(data, "val.npz"), [xyz.astype(np.int32)],
+                [rgb.astype(np.float32)])
+    return len(xyz), len(cubes)
+
+
+def plain_autograd(fn):
+    """Run ``fn`` with every conv through ``tap_gemm_plain`` on the layer's
+    dense stack in the operand type (bf16 on the card) and every
+    compaction through
+    ``compact_plain``, differentiated by torch autograd alone."""
+    from upcc_tpu_torch.models import transforms
+    saved = (F._gemm, sparse.compact, transforms.compact)
+
+    def gemm(flat, idx, ok, w, self_map=True):
+        dense = w.dense.to(flat.dtype) if isinstance(w, F.TrainTaps) \
+            else w
+        return F.tap_gemm_plain(flat, idx, ok, dense)
+
+    def comp(keys, keep, *arrays, out_capacity=None):
+        return compact_plain(keys, keep, *arrays, out_capacity=out_capacity)
+    F._gemm, sparse.compact, transforms.compact = gemm, comp, comp
+    try:
+        return fn()
+    finally:
+        F._gemm, sparse.compact, transforms.compact = saved
+
+
+def train_profile(tr, st, q, lam, root):
+    """One step under torch.profiler, forward and backward in separate
+    windows: (device busy ms, {name: (ms, launches)}) for K1 forward, K1
+    dgrad and K1w."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+        return out, ev
+
+    step = tr.step_fn
+    step.optimizer.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    (total, _), ev_f = window(lambda: step.loss(st, q, lam, root))
+    _, ev_b = window(lambda: (total.backward(), step.optimizer.step()))
+    wall = (time.perf_counter() - t0) * 1e3
+
+    def pick(ev, key):
+        sel = [e for e in ev if key in e.key]
+        return (sum(_device_us(e) for e in sel) / 1e3,
+                sum(e.count for e in sel))
+    for tag, ev in (("forward", ev_f), ("backward + update", ev_b)):
+        top = sorted(ev, key=_device_us, reverse=True)[:10]
+        print(f"[train] profiled step, {tag}: device busy "
+              f"{sum(_device_us(e) for e in ev) / 1e3:.1f} ms; top device "
+              "operations:", flush=True)
+        for e in top:
+            print(f"[train]   {_device_us(e) / 1e3:8.3f} ms {e.count:6d}x "
+                  f"{e.key[:90]}", flush=True)
+    busy = sum(_device_us(e) for e in ev_f + ev_b) / 1e3
+    return busy, wall, {"K1 forward": pick(ev_f, "tap_mainloop"),
+                        "K1 dgrad": pick(ev_b, "tap_mainloop"),
+                        "K1w": pick(ev_b, "wgrad_kernel"),
+                        "K1w reduce": pick(ev_b, "wgrad_reduce")}
+
+
+def check_recorded_backward(record):
+    """Every K1 dgrad call (K1 on a mirrored plan) and K1w call of one
+    recorded step against its plain version (tolerance as K1's), K1w
+    twice bit-equal; each timed beside its plain version, a library call
+    and its bound.  Returns the K1w and K1 dgrad rows and the K3 backward
+    gather's ms."""
+    torch.set_grad_enabled(False)
+    try:
+        return _check_recorded_backward(record)
+    finally:
+        torch.set_grad_enabled(True)
+
+
+def _check_recorded_backward(record):
+    wg = {id(c[4]): c for c in record.get("tap_wgrad", [])}
+    policy_ms = {}
+    rows = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0,
+                "t_ops": 0.0, "calls": 0}
+            for n in ("tap_wgrad", "dgrad")}
+
+    def add(name, err, t_k, t_p, t_l, nbytes, flops):
+        r = rows[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += t_k
+        r["plain_ms"] += t_p
+        r["library_ms"] += t_l
+        r["bound_ms"] += bound_ms(nbytes, flops)[0]
+        r["t_bytes"] += nbytes / PEAK_BYTES * 1e3
+        r["t_ops"] += flops / PEAK_BF16 * 1e3
+        r["calls"] += 1
+
+    for flat, idx, ok, dacc, plan in record.get("tap_wgrad", []):
+        got = F.tap_wgrad(flat, idx, ok, dacc, plan)
+        again = F.tap_wgrad(flat, idx, ok, dacc, plan)
+        dense = F.tap_wgrad_plain(flat, idx, ok, dacc)
+        ref = plan.blocks_of(dense)
+        err = float((got - ref).abs().max())
+        tol = 1e-3 * float(ref.abs().max()) + 1e-5
+        assert err <= tol, "tap_wgrad disagrees with its plain version"
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
+            "tap_wgrad: two calls on the same inputs differ"
+        del got, again, ref, dense
+        t_k = cuda_time(lambda: F.tap_wgrad(flat, idx, ok, dacc, plan), 3)
+        t_p = cuda_time(lambda: F.tap_wgrad_plain(flat, idx, ok, dacc), 1)
+        n, taps = idx.shape
+        stack = (flat[idx.clamp(max=flat.shape[0] - 1).long()]
+                 * ok[..., None].to(flat.dtype)).reshape(n, -1)
+        t_l = cuda_time(lambda: torch.matmul(stack.T, dacc), 2)
+        del stack
+        # the function's work: the structurally nonzero weight elements
+        # (those of the forward's stack) times the rows each tap reads
+        nnz = (plan.dense() != 0).reshape(taps, -1).sum(1).double()
+        flops = float(2 * (ok.sum(0).double() * nnz).sum())
+        nbytes = (flat.numel() * 2 + dacc.numel() * 2 + idx.numel() * 5
+                  + float(nnz.sum()) * 4)
+        t_pol = {}
+        for pol, fn in WGRAD_POLICIES.items():
+            F.wgrad_chunks = fn
+            try:
+                t_pol[pol] = cuda_time(
+                    lambda: F.tap_wgrad(flat, idx, ok, dacc, plan), 3)
+            finally:
+                F.wgrad_chunks = WGRAD_POLICIES["kept"]
+            policy_ms[pol] = policy_ms.get(pol, 0.0) + t_pol[pol]
+        print(f"[k1w train] rows={n} K_in={plan.k_in} K_out={plan.k_out} "
+              f"listed_blocks={plan.n_blocks} chunks="
+              f"{F.wgrad_chunks(n, plan.n_blocks, F._sm_count(ok.device))} "
+              f"err={err:.3e} kernel={t_k:.3f} ms plain={t_p:.3f} ms "
+              f"matmul={t_l:.3f} ms bound={bound_ms(nbytes, flops)[0]:.4f} "
+              f"ms; chunk policies " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in t_pol.items()), flush=True)
+        add("tap_wgrad", err, t_k, t_p, t_l, nbytes, flops)
+
+    for g, idx, ok, plan_t in record.get("tap_gemm", []):
+        if plan_t.mirror_of is None:
+            continue  # a forward call
+        flat, fidx, fok, dacc, plan = wg[id(plan_t.mirror_of)]
+        got = F.tap_gemm(g, idx, ok, plan_t)
+        ref = F.tap_dgrad_plain(dacc, fidx, fok, plan, flat.shape[0])
+        err = float((got - ref).abs().max())
+        tol = 1e-3 * float(ref.abs().max()) + 1e-5
+        assert err <= tol, "K1 dgrad disagrees with its plain version"
+        del got, ref
+        t_k = cuda_time(lambda: F.tap_gemm(g, idx, ok, plan_t), 3)
+        t_p = cuda_time(lambda: F.tap_dgrad_plain(dacc, fidx, fok, plan,
+                                                  flat.shape[0]), 1)
+        w = plan_t.dense()
+        n, taps = idx.shape
+        stack = (g[idx.clamp(max=g.shape[0] - 1).long()]
+                 * ok[..., None].to(g.dtype)).reshape(n, -1)
+        w2 = w.reshape(-1, w.shape[-1])
+        t_l = cuda_time(lambda: torch.matmul(stack, w2), 2)
+        del stack
+        nnz = (w != 0).reshape(taps, -1).sum(1).double()
+        flops = float(2 * (ok.sum(0).double() * nnz).sum())
+        nbytes = (g.numel() * 2 + float(nnz.sum()) * 2 + idx.numel() * 5
+                  + n * w.shape[-1] * 4)
+        print(f"[k1 dgrad train] rows={n} K_in={w.shape[1]} "
+              f"K_out={w.shape[2]} "
+              f"self_map={idx.data_ptr() == fidx.data_ptr()} err={err:.3e} "
+              f"kernel={t_k:.3f} ms plain={t_p:.3f} ms matmul={t_l:.3f} ms "
+              f"bound={bound_ms(nbytes, flops)[0]:.4f} ms", flush=True)
+        add("dgrad", err, t_k, t_p, t_l, nbytes, flops)
+    assert rows["dgrad"]["calls"] == len(wg) - 1, \
+        "every layer but g_a's first must have run its dgrad"
+    print("[train] K1w summed over the step's calls by chunk policy: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in policy_ms.items()),
+          flush=True)
+
+    # the K3 backward: a rank gather per differentiable payload
+    gather_ms = 0.0
+    for keys, keep, arrays, m in record.get("compact", []):
+        for a in arrays:
+            if a.is_floating_point():
+                gout = torch.ones((m,) + a.shape[1:], dtype=a.dtype,
+                                  device=a.device)
+                gather_ms += cuda_time(
+                    lambda: sparse.compact_grad(keep, gout, m), 5)
+    for r in rows.values():
+        r["bound_by"] = "bytes" if r["t_bytes"] >= r["t_ops"] \
+            else "operations"
+    return rows, gather_ms
+
+
+def run_train(smi):
+    """The flagship's training step at full width on one vox10 frame's
+    cubes: step timing, launches, prepares, the recorded backward against
+    its plain versions, one profiled step, whole-step gradients against
+    the plain autograd path, the loss on a fixed batch over 20 steps, and
+    a Training-driven run with validation and resume."""
+    from upcc_tpu_torch.models.unified import host_root_maps
+    from upcc_tpu_torch.training.trainer import Training
+    tmp = tempfile.mkdtemp(prefix="upcc_train_")
+    try:
+        t0 = time.time()
+        n_pts, n_cubes = make_train_data(tmp)
+        cfg = train_config(tmp)
+        tr = Training(cfg, capacity="auto", device="cuda",
+                      renders=False)
+        # the epoch's fullest batch of batch_size cubes from the packer
+        # (bucketing puts the smallest cubes first; the last batches of
+        # the largest cubes hold fewer)
+        def cubes_in(b):
+            return len(set(b[0][b[0] >= 0].tolist()))
+        batch = max((b for b in tr._batches(np.random.default_rng(0))
+                     if cubes_in(b) == tr.batch_size),
+                    key=lambda b: int((b[0] >= 0).sum()))
+        st, root = tr.batch_tensors(batch)
+        q, lam = tr.q_func.sample(torch.Generator().manual_seed(0),
+                                  tr.batch_size)
+        q, lam = q.cuda(), lam.cuda()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        # tap convs (the kernel-2 transposes of h_s are one dense product)
+        n_layers = sum(isinstance(m, _TapConv) and not (
+            m.kind == "transpose" and m.kernel_size == 2)
+            for m in tr.model.modules())
+        print(f"[train] {n_pts} points -> {n_cubes} cubes of 128^3 "
+              f"({len(tr.train_ds)} with >= 300 points); the trainer's auto "
+              f"capacity {tr.capacity}; its fullest batch of {tr.batch_size} "
+              f"cubes: {int((batch[0] >= 0).sum())} points in "
+              f"{cubes_in(batch)} cubes at capacity {len(batch[0])}; "
+              f"{n_layers} tap conv layers; set-up "
+              f"{time.time() - t0:.1f} s", flush=True)
+
+        for _ in range(2):  # warm-up
+            tr.step_fn(st, q, lam, root, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        prepared = F.PREPARE_CALLS
+        times = []
+        for _ in range(TRAIN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            met = tr.step_fn(st, q, lam, root, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v // TRAIN_TIMED_STEPS
+                    for k, v in kernels.LAUNCHES.items() if v}
+        prepares = (F.PREPARE_CALLS - prepared) / TRAIN_TIMED_STEPS
+        assert all(math.isfinite(float(v)) for v in met.values()), met
+        assert prepares == 2 * n_layers - 1, \
+            f"{prepares} weight preparations a step, not {2 * n_layers - 1}"
+        for name in ("tap_gemm", "tap_wgrad", "topk_mask", "compact"):
+            assert launches.get(name, 0) > 0, f"{name} was not launched"
+        assert launches["tap_wgrad"] == n_layers
+        assert launches["tap_gemm"] == 2 * n_layers - 1
+        print(f"[train] step ms over {TRAIN_TIMED_STEPS} steps: median "
+              f"{float(np.median(times)):.1f} (min {min(times):.1f}, max "
+              f"{max(times):.1f}); max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB; launches per step {launches} "
+              f"(K1 = {n_layers} forward + {n_layers - 1} dgrad); weight "
+              f"preparations per step {prepares:g}; loss parts "
+              + ", ".join(f"{k}={float(v):.4f}" for k, v in met.items())
+              + f" | {smi}", flush=True)
+
+        kernels.RECORD = {}
+        tr.step_fn(st, q, lam, root, gen)
+        record, kernels.RECORD = kernels.RECORD, None
+        rows, gather_ms = check_recorded_backward(record)
+        del record
+        for name, r in rows.items():
+            print(f"[train] {name}: {r['calls']} calls, kernel="
+                  f"{r['ms']:.3f} ms plain={r['plain_ms']:.3f} ms library="
+                  f"{r['library_ms']:.3f} ms bound={r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}",
+                  flush=True)
+        print(f"[train] K3 backward (rank gather, plain torch) over the "
+              f"step's compactions: {gather_ms:.3f} ms", flush=True)
+
+        busy, wall, prof = train_profile(tr, st, q, lam, root)
+        med = float(np.median(times))
+        print(f"[train] one step under torch.profiler: wall {wall:.1f} ms, "
+              f"device busy {busy:.1f} ms ({100 * busy / med:.1f}% of the "
+              f"median step {med:.1f} ms); "
+              + "; ".join(
+                  f"{k} {ms:.3f} ms in {n} launches"
+                  for k, (ms, n) in prof.items()), flush=True)
+
+        # whole-step gradients against the plain autograd path
+        small = collate_small(tr, GRAD_BATCH)
+        sst, sroot = tr.batch_tensors(small)
+        grads = []
+        for route in ("kernel", "plain"):
+            def run():
+                tr.model.zero_grad(set_to_none=True)
+                total, _ = tr.step_fn.loss(sst, q, lam, sroot)
+                total.backward()
+                return {n: p.grad.detach().clone()
+                        for n, p in tr.model.named_parameters()
+                        if p.grad is not None}
+            with torch.random.fork_rng(devices=[0]):
+                torch.cuda.manual_seed(1)
+                grads.append(run() if route == "kernel"
+                             else plain_autograd(run))
+        assert set(grads[0]) == set(grads[1])
+        rel = {n: float(torch.linalg.vector_norm(grads[0][n] - g)
+                        / torch.linalg.vector_norm(g).clamp(min=1e-30))
+               for n, g in grads[1].items()}
+        rel_max = {n: float((grads[0][n] - g).abs().max()
+                            / g.abs().max().clamp(min=1e-30))
+                   for n, g in grads[1].items()}
+        total_rel = float(torch.sqrt(sum(
+            torch.sum((grads[0][n] - g) ** 2) for n, g in grads[1].items())
+            / sum(torch.sum(g ** 2) for g in grads[1].values())))
+        worst = max(rel, key=rel.get)
+        worst_max = max(rel_max, key=rel_max.get)
+        print(f"[train] whole-step gradients, kernels vs plain autograd, "
+              f"{GRAD_BATCH} cubes, {len(rel)} parameters: worst "
+              f"||diff||/||plain|| {rel[worst]:.3e} ({worst}; tolerance "
+              f"{GRAD_TOL_EACH}), median "
+              f"{float(np.median(list(rel.values()))):.3e}, over all "
+              f"parameters {total_rel:.3e} (tolerance {GRAD_TOL})"
+              f"; worst max|diff|/max|plain| {rel_max[worst_max]:.3e} "
+              f"({worst_max})", flush=True)
+        assert total_rel <= GRAD_TOL and rel[worst] <= GRAD_TOL_EACH, \
+            "gradients disagree with the plain path"
+        del grads
+
+        # the loss on one fixed batch, fixed q and fixed noise, over 20
+        # steps, from a fresh seeded init (gated: the training loss, main +
+        # aux, falls) and from the committed epoch-193 weights (a resumed
+        # run, fresh Adam moments at the base rate; gated: the RD loss the
+        # main parameters descend falls, while the aux loss, fitted by the
+        # quantiles' own Adam, follows the density the main step moves)
+        for start in ("seeded init", "epoch-193 weights"):
+            del tr
+            tr = Training(cfg, capacity="auto", device="cuda", renders=False)
+            if start != "seeded init":
+                load_weights(tr.model, WEIGHTS)
+            trail = []
+            for i in range(TRAIN_FALL_STEPS):
+                gen.manual_seed(1)
+                trail.append({k: float(v) for k, v in
+                              tr.step_fn(st, q, lam, root, gen).items()})
+            first, last = trail[0], trail[-1]
+            rd = [t["loss"] - t["aux_loss"] for t in trail]
+            print(f"[train] loss on one fixed batch over {TRAIN_FALL_STEPS} "
+                  f"steps from the {start}: "
+                  + ", ".join(f"{k} {first[k]:.4f} -> {last[k]:.4f}"
+                              for k in first)
+                  + "; RD loss (without aux) by step "
+                  + " ".join(f"{v:.3f}" for v in rd), flush=True)
+            assert all(math.isfinite(t["loss"]) for t in trail)
+            if start == "seeded init":
+                assert last["loss"] < first["loss"], \
+                    "the training loss did not fall from the seeded init"
+        assert rd[-1] < rd[0], "the RD loss did not fall"
+        del tr, st, root
+
+        # a Training-driven run: 3 steps, validation at q = (1, 1) through
+        # real bitstreams, checkpoint, resume
+        cfg.update(epochs=1, val_every=1, val_qualities=[(1, 1)])
+        t0 = time.time()
+        tr = Training(cfg, capacity="auto", max_steps_per_epoch=3,
+                      device="cuda", renders=False)
+        tr.train()
+        secs = time.time() - t0
+        exp = tr.results_dir
+        with open(os.path.join(exp, "val.csv")) as f:
+            val = list(csv.DictReader(f))
+        assert len(val) == 1 and float(val[0]["bpp"]) > 0, val
+        cfg["epochs"] = 2
+        tr2 = Training(cfg, capacity="auto", device="cuda",
+                       renders=False)
+        assert tr2.start_epoch == 1 and tr2.step_fn.step == 3
+        same = all(torch.equal(a, b) for a, b in zip(
+            tr.model.state_dict().values(), tr2.model.state_dict().values()))
+        assert same, "the resumed model differs from the checkpointed one"
+        print(f"[train] Training: 3 steps + validation in {secs:.1f} s; "
+              f"val.csv row q=(1, 1): bpp={float(val[0]['bpp']):.4f} "
+              f"Y_PSNR={float(val[0]['sym_y_psnr']):.3f} dB "
+              f"D1_PSNR={float(val[0]['sym_psnr_mse']):.3f} dB; resumed at "
+              f"epoch {tr2.start_epoch}, step {tr2.step_fn.step}, parameters "
+              f"equal; files {sorted(os.listdir(exp))}", flush=True)
+        return rows, launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def collate_small(tr, n):
+    """A batch of the first ``n`` cubes of the set, at the packer's
+    smallest ladder capacity holding them."""
+    from upcc_tpu_torch.data.dataset import collate_cubes
+    items = [tr.train_ds[i] for i in range(n)]
+    total = sum(len(x) for x, _ in items)
+    cap = next(c for c in tr._CAP_LADDER if total <= c)
+    return collate_cubes(items, cap, np.random.default_rng(0))
+
+
 # -- phase 10: the evaluation driver -----------------------------------------
 
 EVAL_SEQUENCE = "longdress"
@@ -1299,6 +1884,14 @@ def main():
     # 2. kernels on edge cases
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    check_tap_wgrad(gen)
+    if "--train" in sys.argv[1:]:
+        run_train(smi)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     check_tap_gemm(gen)
     check_topk(gen)
     check_compact(gen)
@@ -1433,6 +2026,11 @@ def main():
 
     # 10. the evaluation driver against the committed RD rows
     run_eval()
+
+    # 11. the flagship's training step (K1 forward and dgrad, K1w, K2, K3)
+    train_rows, train_launches = run_train(smi)
+    rows["tap_wgrad"] = train_rows["tap_wgrad"]
+    launches["tap_wgrad"] = train_launches["tap_wgrad"]
 
     out = []
     for name, (src, replaces) in REPLACES.items():

@@ -188,8 +188,12 @@ def test_cached_plan_follows_the_weights(how):
     fm, feats, valid = _conv_setup()
     layer = L.FamilyConv(6, 5, 3)
     first = _follows(layer, fm, feats, valid)
-    plan = layer.taps()
-    assert layer.taps() is plan, "an unchanged parameter keeps its plan"
+    # the cache serves inference (gradients off); with gradients on a
+    # trainable layer prepares its weights afresh for the step
+    with torch.no_grad():
+        plan = layer.taps()
+        assert layer.taps() is plan, "an unchanged parameter keeps its plan"
+    assert isinstance(layer.taps(), TF.TrainTaps)
     if how == "in_place":
         with torch.no_grad():
             layer.w.mul_(2.0)
@@ -209,7 +213,8 @@ def test_cached_plan_follows_the_weights(how):
         # (Codec.update() calls it on every layer) rebuilds the plan
         layer.w.data.mul_(3.0)
         assert layer.prepare() > 0
-    assert layer.taps() is not plan
+    with torch.no_grad():
+        assert layer.taps() is not plan
     second = _follows(layer, fm, feats, valid)
     assert not torch.allclose(first, second)
 

@@ -34,6 +34,7 @@ BUILD_DIR = os.environ.get("UPCC_TORCH_BUILD") or os.path.join(
 
 SOURCES = {
     "tap_gemm": "csrc/tap_gemm.cu",
+    "tap_wgrad": "csrc/tap_wgrad.cu",
     "topk_mask": "csrc/topk.cu",
     "compact": "csrc/compact.cu",
     "tile_tapconv": "csrc/tile_tapconv.cu",
@@ -52,6 +53,12 @@ _SIGNATURES = {
         # blk_k0, bn, wgs, out, stream
         "upcc_tap_gemm": [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _I64, _P,
                           _P, _I64, _I64, _P, _P],
+    },
+    "tap_wgrad": {
+        # flat, n_src, k_in, idx, ok, rows, taps, dacc, k_out, block index,
+        # n_blocks, bn, chunk rows, chunks, partials, out, stream
+        "upcc_tap_wgrad": [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _I64, _P,
+                           _I64, _I64, _I64, _I64, _P, _P, _P],
     },
     "topk_mask": {
         # keys, logits, k, n, maxb, resident, grid, per_block, histograms,

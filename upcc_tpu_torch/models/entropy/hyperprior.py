@@ -1,4 +1,4 @@
-"""Variable-rate mean-scale hyperprior over sparse latents, inference half.
+"""Variable-rate mean-scale hyperprior over sparse latents.
 
 h_a: 3^3 conv + LeakyReLU + two stride-2 3^3 convs (y stride 8 -> z 32);
 h_s: two stride-2 kernel-2 generative transposes + a 3^3 conv producing
@@ -6,7 +6,9 @@ h_s: two stride-2 kernel-2 generative transposes + a 3^3 conv producing
 cross-parent map; the gain nets map q = (q_g, q_a) to per-channel gains and
 quant_nn predicts quantization-reconstruction offsets.  Encoder and decoder
 both run ``decode_params_device``, so their entropy parameters are the
-same bits.  The training forward is not ported.
+same bits.  ``forward`` is the training (or eval-rounding) pass that
+returns y_hat and the likelihoods of y and z, with the JAX package's
+stop-gradients (the inverse gain, the signs and the offsets' gain input).
 """
 
 import torch
@@ -14,9 +16,11 @@ from torch import nn
 
 from ...ops import coords
 from ...ops import family as F
-from ...ops.sparse import SparseTensor, upsample_children_keys
-from ..bound import lower_bound
-from ..layers import MLP, FamilyConv, FamilyDownConv, FamilyTransposeUp
+from ...ops.sparse import (SparseTensor, downsample_keys, take_rows,
+                           upsample_children_keys)
+from ..bound import lower_bound, quantize_ste
+from ..layers import (MLP, FamilyConv, FamilyDownConv, FamilyTransposeUp,
+                      leaky_relu)
 from . import gaussian
 from .bottleneck import FactorizedBottleneck
 
@@ -24,7 +28,7 @@ EPS = 1e-4
 
 
 def _leaky_relu(x):
-    return torch.nn.functional.leaky_relu(x, 0.01)
+    return leaky_relu(x, 0.01)
 
 
 class MeanScaleHyperprior(nn.Module):
@@ -35,6 +39,7 @@ class MeanScaleHyperprior(nn.Module):
         super().__init__()
         C, Ch = C_bottleneck, C_hyper_bottleneck
         self.C_bottleneck = C
+        self.quantization_mode = quantization_mode
         self.inverse_rescaling = inverse_rescaling
         self.quantization_offset = quantization_offset
         self.adaptive_BN = adaptive_BN
@@ -54,6 +59,13 @@ class MeanScaleHyperprior(nn.Module):
                 self.rescale_nn = MLP(2, (8, C // 4, C), final_softplus=True)
         if quantization_offset:
             self.quant_nn = MLP(2, (10, 10, 1))
+
+    def derive_z_keys(self, y_keys):
+        """z coordinates from y coordinates alone (the decoder bootstrap);
+        the same caps and downsampling as h_a's key path."""
+        cap0 = int(self.cap_factors[0] * y_keys.shape[0])
+        cap1 = int(self.cap_factors[1] * y_keys.shape[0])
+        return downsample_keys(downsample_keys(y_keys, cap0), cap1)
 
     def _pyramid(self, y_keys, root_nbr=None, z_caps=None):
         """y(stride 8) -> stride 16 -> stride 32 (z) pyramid."""
@@ -140,11 +152,11 @@ class MeanScaleHyperprior(nn.Module):
             return ones, ones
         scale_b = self.scale_nn(q.float()) + EPS  # [B, C]
         b = y_batch.clamp(0, q.shape[0] - 1).to(torch.int64)
-        scale = scale_b[b]
+        scale = take_rows(scale_b, b)
         if self.inverse_rescaling:
-            rescale = 1.0 / scale
+            rescale = 1.0 / scale.detach()
         else:
-            rescale = (1.0 / (self.rescale_nn(q.float()) + EPS))[b]
+            rescale = take_rows(1.0 / (self.rescale_nn(q.float()) + EPS), b)
         m = y_valid[:, None].float()
         return scale * m + (1 - m), rescale * m + (1 - m)
 
@@ -152,6 +164,58 @@ class MeanScaleHyperprior(nn.Module):
         """Quantization-reconstruction offsets from (gain, stddev) pairs."""
         inp = torch.stack([scale, stddev], dim=-1)  # [N, C, 2]
         return self.quant_nn(inp)[..., 0]
+
+    def forward(self, y: SparseTensor, q, training=True, root_nbr=None,
+                generator=None):
+        """Training forward: (y_hat, (y likelihoods, z likelihoods)).  The
+        noise of the rate proxies (z's, then y's) comes from ``generator``;
+        ``training=False`` rounds instead."""
+        levels = self._pyramid(y.keys, root_nbr=root_nbr)
+        z = self.h_a(y, levels)
+        z_valid = z.valid
+        mode = self.quantization_mode if training else "round"
+        if mode == "uniform":
+            z_hat_f, z_lik = self.bottleneck(z.feats, "noise", generator)
+        else:
+            z_hat_f, z_lik = self.bottleneck(
+                z.feats, "ste" if training else "round", generator,
+                noise=training)
+        z_hat_f = z_hat_f * z_valid[:, None]
+        z_lik = torch.where(z_valid[:, None], z_lik, 1.0)
+        z_hat = z.replace(feats=z_hat_f)
+
+        scales_hat, means_hat = self.h_s_params_at(z_hat, y.keys, levels)
+        y_valid = y.valid
+        scale, rescale = self.gains(q, y.batch, y_valid)
+
+        # the rate term at the quantized latent: the noise proxy in
+        # training, rounding to the mean grid otherwise
+        y_scaled = y.feats * scale
+        if training:
+            y_rate_in = gaussian.quantize_noise(y_scaled, generator)
+        else:
+            y_rate_in = torch.round(y_scaled - means_hat * scale) \
+                + means_hat * scale
+        y_lik = gaussian.likelihood(y_rate_in, scales_hat * scale,
+                                    means=means_hat * scale)
+        y_lik = torch.where(y_valid[:, None], y_lik, 1.0)
+
+        if self.quantization_offset:
+            tmp = scale * (y.feats - means_hat)
+            signs = torch.sign(tmp).detach()
+            if mode == "uniform":
+                y_q_abs = gaussian.quantize_noise(torch.abs(tmp), generator)
+            else:
+                y_q_abs = quantize_ste(torch.abs(tmp))
+            stdev = lower_bound(scales_hat * scale, gaussian.SCALE_MIN)
+            offs = -self.offsets(stdev, scale.detach())
+            offs = torch.where(y_q_abs < EPS, 0.0, offs)
+            y_hat_f = signs * (y_q_abs + offs)
+            y_hat_f = y_hat_f * rescale + means_hat
+        else:
+            y_hat_f = y_rate_in * rescale
+        y_hat_f = y_hat_f * y_valid[:, None]
+        return y.replace(feats=y_hat_f), (y_lik, z_lik)
 
     def decode_params_device(self, y_keys, z_sym, q, z_keys=None,
                              root_nbr=None, z_caps=None, hs_caps=None):

@@ -45,9 +45,14 @@ class _TapConv(nn.Module):
                 F.default_compute_dtype(w.device))
 
     def taps(self, grand=False):
-        """The prepared weights for this call shape, rebuilt if stale
-        (detached from autograd: the port's forward is inference only)."""
+        """The prepared weights for this call shape.  With gradients on and
+        ``w`` trainable: prepared afresh for this step and attached to
+        ``w`` (``ops.family.TrainTaps``: K1 forward, K1 dgrad on the
+        mirrored plan, K1w wgrad); the weights change after every optimizer
+        step.  Otherwise the cached plan, rebuilt if stale."""
         kind = "grand_" + self.kind if grand else self.kind
+        if torch.is_grad_enabled() and self.w.requires_grad:
+            return F.prepare_train_taps(self.w, kind, self.kernel_size)
         key = self._key()
         hit = self._plans.get(kind)
         if hit is None or hit[0] != key:
@@ -56,6 +61,7 @@ class _TapConv(nn.Module):
             self._plans[kind] = hit
         return hit[1]
 
+    @torch.no_grad()
     def prepare(self):
         """Drop every cached plan and build the one this layer runs with.
         Returns the bytes held."""
@@ -151,6 +157,43 @@ class PointwiseConv(nn.Module):
         if self.b is not None:
             out = out + self.b
         return out * valid[:, None].to(out.dtype)
+
+
+class SparseConv(nn.Module):
+    """Generic gather-GEMM sparse conv over key lookups (``ops.conv``): for
+    channelwise or odd cases, and the reference the family engine is
+    tested against."""
+
+    def __init__(self, cin, cout, kernel_size=3, mode="same", use_bias=True):
+        super().__init__()
+        k = kernel_size ** 3
+        self.kernel_size, self.mode = kernel_size, mode
+        self.w = nn.Parameter(torch.randn(k, cin, cout) * (1.0 / (k * cin)) ** 0.5)
+        self.b = nn.Parameter(torch.zeros(cout)) if use_bias else None
+
+    def forward(self, x, out_keys=None, out_stride=None):
+        from ..ops.conv import apply_sparse_conv
+        if out_keys is None:
+            assert self.mode == "same"
+            out_keys, out_stride = x.keys, x.stride
+        return apply_sparse_conv(x, out_keys, self.w, self.b,
+                                 C.kernel_offsets(self.kernel_size),
+                                 self.mode, out_stride)
+
+
+def leaky_relu(x, slope=0.01):
+    """``jax.nn.leaky_relu``: its gradient at 0 is 1 (torch's is the
+    slope), which matters where a layer's output is exactly 0, as at a
+    fresh init whose z rounds to 0."""
+    return torch.where(x >= 0, x, slope * x)
+
+
+def leaky_relu_st(x, slope=0.01):
+    return x.replace(feats=leaky_relu(x.feats, slope))
+
+
+def relu_st(x):
+    return x.replace(feats=torch.relu(x.feats))
 
 
 class Dense(nn.Module):

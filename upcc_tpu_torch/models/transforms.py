@@ -14,6 +14,11 @@ position the kernel-5 transpose reaches: the covered children of the
 outside grandparent layout.  ``ext_keep``/``emit_last_logits`` are the
 coded-occupancy hooks of ``codec/refine.py``.  Not ported yet: the oracle
 diagnostics.
+
+The same forwards train: with gradients on, every tap conv runs through
+``ops.family.TapGemm`` and the prunes through ``compact``'s gradient; the
+top-k masks carry none.  Region mode does not train in the port yet
+(its transposes run over cross maps; it raises with gradients on).
 """
 
 import torch
@@ -21,7 +26,7 @@ from torch import nn
 
 from ..ops import coords as C
 from ..ops import family as F
-from ..ops.sparse import (SparseTensor, compact, dilate_keys,
+from ..ops.sparse import (SparseTensor, compact, dilate_keys, take_rows,
                           upsample_children_keys)
 from ..ops.topk import topk_mask
 from .gdn import GDN
@@ -94,7 +99,8 @@ class AnalysisTransform(nn.Module):
             fb = self.conv1(nbr2, xb, None, grand=True)  # [cap2, 8, N1]
             rows = pp1.clamp(max=cap2 - 1).to(torch.int64) * 8 + sl1
             v1 = C.key_is_valid(levels[1]["keys"])
-            f1 = fb.reshape(cap2 * 8, self.N1)[rows] * v1[:, None].to(fb.dtype)
+            f1 = take_rows(fb.reshape(cap2 * 8, self.N1), rows) \
+                * v1[:, None].to(fb.dtype)
         else:
             f1 = self.conv1(fm(0), x.feats, x.valid)
         x = SparseTensor(keys=levels[1]["keys"], feats=f1, stride=x.stride * 2)
@@ -199,6 +205,9 @@ class SparseSynthesisTransform(nn.Module):
         emit_last_logits stops at level num_levels-1 right after its
         occupancy logits (no prune, no color head).
         Returns (x_hat, candidates, logits_list)."""
+        if self.region_candidates and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "region-candidate g_s does not train in the port yet")
         base_cap = y.capacity
         dev = y.keys.device
         caps = list(prune_caps) if prune_caps is not None else \
@@ -254,10 +263,11 @@ class SparseSynthesisTransform(nn.Module):
                 rows = gpar.clamp(max=gcap - 1).to(torch.int64) * 8 \
                     + gslot.to(torch.int64)
                 # bf16 candidate features: they only feed the color head
-                cf8 = cg.to(torch.bfloat16).reshape(gcap * 8, 8, cout)[rows]
+                cf8 = take_rows(cg.to(torch.bfloat16).reshape(gcap * 8, 8,
+                                                              cout), rows)
                 cfeats = (cf8 * xvalid[:, None, None].to(cf8.dtype)
                           ).reshape(8 * n_parents, cout)
-                logits = (lgrand.reshape(gcap * 8, 8)[rows]
+                logits = (take_rows(lgrand.reshape(gcap * 8, 8), rows)
                           * xvalid[:, None]).reshape(8 * n_parents)
                 cand = SparseTensor(
                     keys=torch.where(cvalid, child_keys,
@@ -270,9 +280,9 @@ class SparseSynthesisTransform(nn.Module):
                 if lvl < len(ext_keep):
                     keep = ext_keep[lvl] & cvalid
                 else:
-                    keep = topk_mask(cand,
-                                     self._prune_logits(logits, cvalid),
-                                     self._k_eff(k, lvl)) & cvalid
+                    keep = topk_mask(cand, self._prune_logits(
+                        logits.detach(), cvalid), self._k_eff(k, lvl)) \
+                        & cvalid
                 pk, pf = compact(child_keys, keep, cand.feats,
                                  out_capacity=caps[lvl])
                 x = SparseTensor(keys=pk, feats=pf, stride=x.stride // 2)
@@ -316,8 +326,8 @@ class SparseSynthesisTransform(nn.Module):
             if lvl < len(ext_keep):
                 keep = ext_keep[lvl] & cvalid
             else:
-                keep = topk_mask(cand, self._prune_logits(logits, cvalid),
-                                 self._k_eff(k, lvl)) & cvalid
+                keep = topk_mask(cand, self._prune_logits(
+                    logits.detach(), cvalid), self._k_eff(k, lvl)) & cvalid
             # prune with parent links carried through the compaction
             pk, pf, ppar, pslot = compact(child_keys, keep, cand.feats,
                                           cf.point_parent, cf.point_slot,

@@ -1,19 +1,44 @@
-"""UnifiedModel: the joint geometry+attribute codec model (inference half).
+"""UnifiedModel: the joint geometry+attribute codec model.
 
-The device methods the codec calls: the analysis transform, the hyper
+``forward`` is the training pass (g_a -> hyperprior -> g_s, returning what
+the loss reads) and ``aux_loss`` the bottleneck's quantile loss.  The
+device methods the codec calls: the analysis transform, the hyper
 analysis with z rounding, the decoder's params graph (run by the encoder
-too), y symbol extraction, dequantization + synthesis, and the staged synthesis of
-the coded-occupancy mode.  The training forward is not ported.
+too), y symbol extraction, dequantization + synthesis, and the staged
+synthesis of the coded-occupancy mode.
 """
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..ops.sparse import SparseTensor
+from ..ops import family as F
+from ..ops.sparse import SparseTensor, downsample_keys
 from .entropy.hyperprior import MeanScaleHyperprior
 from .transforms import AnalysisTransform, SparseSynthesisTransform
+
+
+def host_root_maps(keys_np, config, device="cpu"):
+    """Host-computed root 27-neighbourhood maps of the training forward
+    ({'ga': (idx, ok), 'z': (idx, ok)} on ``device``).  The caps mirror
+    g_a's fractional pyramid and the hyperprior's exactly: truncation
+    happens at every level, so the host chain passes the same per-level
+    capacities."""
+    cap = len(keys_np)
+    ga_factors = config["g_a"].get("cap_factors", (0.5, 0.25, 0.125))
+    floor = min(cap, 8192)
+    ga_caps = [max(int(f * cap), floor) for f in ga_factors]
+    _, gi, go = F.host_root_neighbors(np.asarray(keys_np), 4, ga_caps[2],
+                                      ga_caps + [ga_caps[2]])
+    zf = config["entropy_model"].get("cap_factors", (1.0, 0.5, 2.0, 4.0))
+    ycap = ga_caps[2]
+    zcaps = [int(zf[0] * ycap), int(zf[1] * ycap)]
+    _, zi, zo = F.host_root_neighbors(np.asarray(keys_np), 5, zcaps[1],
+                                      ga_caps + zcaps)
+    as_t = lambda a: torch.from_numpy(a).to(device)
+    return {"ga": (as_t(gi), as_t(go)), "z": (as_t(zi), as_t(zo))}
 
 
 def occupancy_color_features(x: SparseTensor):
@@ -35,6 +60,31 @@ class UnifiedModel(nn.Module):
         self.g_a = AnalysisTransform(max_batch=mb, **ga)
         self.g_s = SparseSynthesisTransform(max_batch=mb, **gs)
         self.entropy_model = MeanScaleHyperprior(max_batch=mb, **em)
+
+    def forward(self, x: SparseTensor, q, Lambda, training=True,
+                root_nbrs=None, generator=None):
+        """x: the input cloud (stride 1, colors in [0, 1] as feats); q and
+        Lambda [B, 2]; root_nbrs: host root maps (``host_root_maps``);
+        generator: the training noise's.  Returns the dict the loss reads:
+        prediction, gt_pyramid (stride 4, 2, 1 key sets), candidates,
+        occ_logits, q_map, likelihoods {'y', 'z'} and k."""
+        root_nbrs = root_nbrs or {}
+        xin = occupancy_color_features(x)
+        y, k = self.g_a(xin, root_nbr=root_nbrs.get("ga"))
+        y_hat, (lik_y, lik_z) = self.entropy_model(
+            y, q, training=training, root_nbr=root_nbrs.get("z"),
+            generator=generator)
+        # the GT pyramid: stride-2 key downsamples of the input
+        p1 = downsample_keys(x.keys)
+        p2 = downsample_keys(p1)
+        x_hat, candidates, occ_logits = self.g_s(y_hat, k)
+        return {"prediction": x_hat, "gt_pyramid": [p2, p1, x.keys],
+                "candidates": candidates, "occ_logits": occ_logits,
+                "q_map": Lambda, "likelihoods": {"y": lik_y, "z": lik_z},
+                "k": k}
+
+    def aux_loss(self):
+        return self.entropy_model.bottleneck.aux_loss()
 
     def ga_device(self, x: SparseTensor, root_nbr=None, level_caps=None,
                   max_batch=None):

@@ -115,16 +115,22 @@ def sentinel_like(keys):
     return torch.full((), SENTINEL, dtype=torch.int64, device=keys.device)
 
 
-def shift_units(keys, delta, scale=1):
-    """Neighbour key arithmetic: decode, apply ``u * scale + delta``
-    (delta a static length-3 tuple of ints), re-encode.  Returns
-    (keys, valid): results outside the coordinate range, and shifts of
-    SENTINEL slots, are SENTINEL and not valid."""
+def shift_units(keys, delta, scale=1, div2=False):
+    """Neighbour key arithmetic: decode, apply ``u * scale + delta`` (or
+    ``(u - delta) / 2`` with ``div2``; delta a static length-3 tuple of
+    ints), re-encode.  Returns (keys, valid): results outside the
+    coordinate range (or odd before the halving), and shifts of SENTINEL
+    slots, are SENTINEL and not valid."""
     b = keys & ~KEY_MASK
     d = torch.tensor(delta, dtype=torch.int32, device=keys.device)
-    nu = key_units(keys) * scale + d
-    ok = (nu >= 0).all(-1) & (nu < (1 << COORD_BITS)).all(-1) \
-        & key_is_valid(keys)
+    if div2:
+        t = key_units(keys) - d
+        ok = ((t & 1) == 0).all(-1) & (t >= 0).all(-1) & key_is_valid(keys)
+        nu = t >> 1
+    else:
+        nu = key_units(keys) * scale + d
+        ok = (nu >= 0).all(-1) & (nu < (1 << COORD_BITS)).all(-1) \
+            & key_is_valid(keys)
     nk = b | morton_encode(nu.clamp(min=0))
     return torch.where(ok, nk, sentinel_like(keys)), ok
 

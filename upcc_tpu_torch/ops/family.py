@@ -13,6 +13,15 @@ on grandparent bricks ([G, 64, C]).
 card (``csrc/tap_gemm.cu``) and ``tap_gemm_plain`` on the CPU.  Both take a
 layer's weights prepared once (``prepare_taps`` -> ``ops/tapplan.py``); each
 conv below accepts the raw [K^3, cin, cout] parameter or its TapPlan.
+
+Training differentiates the convs through ``TapGemm`` (prepared per step by
+``prepare_train_taps``): the input gradient is K1 again on the layer's
+mirrored, transposed plan, the weight gradient kernel K1w ``tap_wgrad``
+(``csrc/tap_wgrad.cu``), beside their plain versions ``tap_dgrad_plain``
+and ``tap_wgrad_plain``.  Operand types on the card: flat and the weights
+bf16, as in K1's forward; the output gradient rounded to bf16 as the
+dgrad's A operand and the wgrad's B operand; f32 accumulation, dW in f32.
+On the CPU every operand stays f32.
 """
 
 import dataclasses
@@ -25,6 +34,7 @@ from .. import kernels
 from . import coords as C
 from . import tapplan
 from .scan import cumsum_i32
+from .sparse import take_rows
 
 
 def default_compute_dtype(device):
@@ -338,12 +348,13 @@ def to_brick(fm: FamilyMap, feats):
     idx[fm.point_parent.to(torch.int64) * 8 + fm.point_slot.to(torch.int64)] \
         = torch.arange(n, dtype=torch.int64, device=dev)
     fpad = torch.cat([feats, feats.new_zeros((1, c))], dim=0)
-    return fpad[idx].reshape(p + 1, 8, c)
+    return take_rows(fpad, idx).reshape(p + 1, 8, c)
 
 
 def from_brick(fm: FamilyMap, brick, valid):
     """Read per-point rows back out of a brick tensor."""
-    out = brick[fm.point_parent.to(torch.int64), fm.point_slot.to(torch.int64)]
+    out = take_rows(brick.reshape(-1, brick.shape[-1]),
+                    fm.point_parent.to(torch.int64) * 8 + fm.point_slot)
     return out * valid[:, None].to(out.dtype)
 
 
@@ -393,8 +404,33 @@ def _down_tap_table(kernel_size):
     return tab
 
 
+class _GatherTaps(torch.autograd.Function):
+    """``_gather_taps`` with its gradient as one product: dW = onehot(tab)
+    @ g.  Autograd's own gradient of the index would add the repeats of
+    each tap (up to thousands in the grandparent tables) one after
+    another."""
+
+    @staticmethod
+    def forward(ctx, weights, tab):
+        ctx.save_for_backward(tab)
+        ctx.k = weights.shape[0]
+        return _gather_taps(weights.detach(), tab)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tab,) = ctx.saved_tensors
+        k = ctx.k
+        cin, cout = g.shape[-2], g.shape[-1]
+        onehot = torch.nn.functional.one_hot(
+            torch.where(tab >= 0, tab, k).reshape(-1), k + 1).T.to(g.dtype)
+        dw = onehot @ g.reshape(-1, cin * cout)
+        return dw[:k].reshape(k, cin, cout), None
+
+
 def _gather_taps(weights, tab):
     """weights [K^3, Cin, Cout] indexed by a tap table (-1 -> zeros)."""
+    if torch.is_grad_enabled() and weights.requires_grad:
+        return _GatherTaps.apply(weights, tab)
     cin, cout = weights.shape[1], weights.shape[2]
     wpad = torch.cat([weights, weights.new_zeros((1, cin, cout))], dim=0)
     return wpad[tab]  # index -1 reads the appended zero block
@@ -462,7 +498,7 @@ def prepare_taps(weights, kind, kernel_size, compute_dtype=None):
 
 
 def _as_plan(weights, kind, kernel_size, compute_dtype):
-    if isinstance(weights, tapplan.TapPlan):
+    if isinstance(weights, (tapplan.TapPlan, TrainTaps)):
         return weights
     return prepare_taps(weights, kind, kernel_size, compute_dtype)
 
@@ -533,6 +569,219 @@ def tap_gemm(flat, nbr_idx, nbr_ok, weights):
     return out
 
 
+# -- K1's backward ----------------------------------------------------------
+#
+# Training differentiates every conv through ``TapGemm``, which saves only
+# ``flat``, the map and the prepared weights, never the 27 gathered blocks
+# (the role of the JAX package's ``conv_remat``).
+#
+# dgrad: dflat[s] = sum over (r, k) with idx[r, k] = s, ok[r, k] of
+#   dacc[r] @ W[k]^T.  On a self map of one key set (rows and sources are
+#   the same set; ``_EPS_OFFSETS`` is lexicographic over {-1, 0, 1}^3, so
+#   offset 26-k is minus offset k) ok[r, k] implies idx[idx[r, k], 26-k] =
+#   r, and the sum is K1 itself on the same map with the mirrored,
+#   transposed stack W_T[k] = W[26-k]^T (``tapplan.transposed_plan``).  A
+#   cross map (rows of another set, the flagship's h_s head) first gets its
+#   transposed map by one scatter (``transposed_map``; exact because a
+#   neighbour map sends distinct rows of one tap to distinct sources).
+# wgrad: dW[k] = sum_r ok[r, k] flat[idx[r, k]]^T @ dacc[r], only for the
+#   blocks the plan lists: kernel K1w ``tap_wgrad`` (``csrc/tap_wgrad.cu``).
+#
+# Operand types on the card: flat and the weights are bf16 as in K1's
+# forward; dacc is rounded to bf16 as the dgrad's A operand and as the
+# wgrad's B operand; both accumulate in f32, and dW is f32.  On the CPU
+# every operand stays f32.
+
+def tap_dgrad_plain(dacc, nbr_idx, nbr_ok, wstack, n_src):
+    """dflat [n_src, K_in] f32 of ``tap_gemm``: for every tap,
+    dflat[idx[r, k]] += ok[r, k] * dacc[r] @ W[k]^T (a scatter-add over
+    any map).  wstack: a dense [T, K_in, K_out] stack or a TapPlan."""
+    if isinstance(wstack, tapplan.TapPlan):
+        wstack = wstack.dense()
+    wstack = wstack.float()
+    dacc = dacc.float()
+    idx = nbr_idx.clamp(max=n_src - 1).to(torch.int64)
+    out = torch.zeros((n_src, wstack.shape[1]), dtype=torch.float32,
+                      device=dacc.device)
+    for k in range(nbr_idx.shape[1]):
+        g = dacc * nbr_ok[:, k, None].to(torch.float32)
+        out.index_add_(0, idx[:, k], g @ wstack[k].T)
+    return out
+
+
+def tap_wgrad_plain(flat, nbr_idx, nbr_ok, dacc):
+    """dW [T, K_in, K_out] f32 of ``tap_gemm``: dW[k] = sum_r ok[r, k] *
+    flat[idx[r, k]]^T @ dacc[r], every block."""
+    n_src = flat.shape[0]
+    flat = flat.float()
+    dacc = dacc.float()
+    idx = nbr_idx.clamp(max=n_src - 1).to(torch.int64)
+    return torch.stack([
+        (flat[idx[:, k]] * nbr_ok[:, k, None].to(torch.float32)).T @ dacc
+        for k in range(nbr_idx.shape[1])])
+
+
+# K1w splits the rows into chunks of a multiple of this many; each (block,
+# chunk) pair is one thread block writing its partial sum, and a second
+# pass adds the partials in chunk order (no atomics: equal inputs give equal
+# bits)
+WGRAD_ROWS = 32
+
+
+def wgrad_chunks(rows, n_blocks, sms):
+    """(rows a chunk, chunks) of a K1w call: enough (block, chunk) pairs
+    for 16 thread blocks an SM, chunks of at least 256 rows."""
+    want = max(1, min(-(-16 * sms // max(n_blocks, 1)), -(-rows // 256)))
+    chunk = -(-rows // want)
+    chunk = -(-chunk // WGRAD_ROWS) * WGRAD_ROWS
+    return chunk, max(1, -(-rows // chunk))
+
+
+def tap_wgrad(flat, nbr_idx, nbr_ok, dacc, plan):
+    """The listed blocks of dW, f32 [n_blocks, bk, bn] (K by N, the plan's
+    list order): kernel K1w on the card, ``tap_wgrad_plain`` on the CPU.
+    On CUDA tensors flat and dacc must be bf16."""
+    if not flat.is_cuda:
+        return plan.blocks_of(tap_wgrad_plain(flat, nbr_idx, nbr_ok, dacc))
+    rows, taps = nbr_idx.shape
+    n_src, k_in = flat.shape
+    kernels.require_cuda(flat, torch.bfloat16, 2, "tap_wgrad flat")
+    kernels.require_cuda(dacc, torch.bfloat16, 2, "tap_wgrad dacc")
+    kernels.require_cuda(nbr_idx, torch.int32, 2, "tap_wgrad idx")
+    kernels.require_cuda(nbr_ok, torch.bool, 2, "tap_wgrad ok")
+    if ((plan.taps, plan.k_in, plan.k_out) != (taps, k_in, dacc.shape[1])
+            or dacc.shape[0] != rows or nbr_ok.shape != (rows, taps)
+            or plan.bk != tapplan.TAP_BK or plan.bn % 32 or plan.bn > 128
+            or k_in % 8 or plan.k_out % 8 or not 1 <= n_src < 2 ** 31
+            or rows >= 2 ** 31):
+        raise ValueError(f"tap_wgrad: bad shapes flat {tuple(flat.shape)}, "
+                         f"dacc {tuple(dacc.shape)}, idx "
+                         f"{tuple(nbr_idx.shape)}, plan "
+                         f"{(plan.taps, plan.k_in, plan.k_out, plan.bn)}")
+    nb = plan.n_blocks
+    out = torch.empty((nb, plan.bk, plan.bn), dtype=torch.float32,
+                      device=flat.device)
+    if nb == 0:
+        return out
+    if rows == 0:
+        return out.zero_()
+    chunk, n_chunks = wgrad_chunks(rows, nb, _sm_count(flat.device))
+    part = out if n_chunks == 1 else torch.empty(
+        (n_chunks, nb, plan.bk, plan.bn), dtype=torch.float32,
+        device=flat.device)
+    kernels.count_launch("tap_wgrad", flat, nbr_idx, nbr_ok, dacc, plan)
+    kernels.check(kernels.lib("tap_wgrad").upcc_tap_wgrad(
+        flat.data_ptr(), n_src, k_in, nbr_idx.data_ptr(), nbr_ok.data_ptr(),
+        rows, taps, dacc.data_ptr(), plan.k_out, plan.block_index().data_ptr(),
+        nb, plan.bn, chunk, n_chunks, part.data_ptr(), out.data_ptr(),
+        kernels.stream_ptr(flat)), "tap_wgrad")
+    return out
+
+
+def transposed_map(nbr_idx, nbr_ok, n_src):
+    """The map (idx int32, ok bool) [n_src, T] under which K1 with the
+    mirrored stack computes the dgrad of a *cross* map: source s, tap
+    T-1-k reads the row r with idx[r, k] = s.  One scatter; requires that
+    no two rows of a tap reach the same source (true of neighbour maps)."""
+    rows, taps = nbr_idx.shape
+    dev = nbr_idx.device
+    mirror = torch.arange(taps - 1, -1, -1, dtype=torch.int64, device=dev)
+    dest = nbr_idx.to(torch.int64) * taps + mirror[None, :]
+    dest = torch.where(nbr_ok, dest, n_src * taps).reshape(-1)
+    row = torch.arange(rows, dtype=torch.int32, device=dev)[:, None] \
+        .expand(rows, taps).reshape(-1)
+    idx = torch.zeros(n_src * taps + 1, dtype=torch.int32, device=dev)
+    ok = torch.zeros(n_src * taps + 1, dtype=torch.bool, device=dev)
+    idx[dest] = row
+    ok[dest] = True  # the dump slot n_src * taps is cut off below
+    return (idx[:-1].reshape(n_src, taps).contiguous(),
+            ok[:-1].reshape(n_src, taps).contiguous())
+
+
+@dataclasses.dataclass
+class TrainTaps:
+    """A layer's weights prepared for one training step: ``dense`` the
+    [T, K_in, K_out] f32 stack attached to the parameter (autograd carries
+    dW back through ``_dense_taps``), ``plan`` the forward operands, and the
+    mirrored plan of the dgrad, built at first use in the backward."""
+
+    dense: torch.Tensor
+    plan: tapplan.TapPlan
+    struct: np.ndarray
+    cin: int
+    cout: int
+    compute_dtype: torch.dtype
+    _plan_t: tapplan.TapPlan = None
+
+    @property
+    def k_out(self):
+        return self.plan.k_out
+
+    def plan_t(self):
+        global PREPARE_CALLS
+        if self._plan_t is None:
+            PREPARE_CALLS += 1
+            self._plan_t = tapplan.transposed_plan(
+                self.dense.detach().to(self.compute_dtype), self.struct,
+                self.cin, self.cout)
+            self._plan_t.mirror_of = self.plan
+        return self._plan_t
+
+
+def prepare_train_taps(weights, kind, kernel_size, compute_dtype=None):
+    """``prepare_taps`` for a training step: the same plan, plus the dense
+    stack kept attached to ``weights`` (once per layer and step)."""
+    global PREPARE_CALLS
+    PREPARE_CALLS += 1
+    compute_dtype = compute_dtype or default_compute_dtype(weights.device)
+    dense = _dense_taps(weights, kind, kernel_size).float()
+    struct = _tap_table_np(kind, kernel_size) >= 0
+    plan = tapplan.plan_from_dense(dense.detach().to(compute_dtype), struct,
+                                   weights.shape[1], weights.shape[2])
+    return TrainTaps(dense, plan, struct, weights.shape[1], weights.shape[2],
+                     compute_dtype)
+
+
+class TapGemm(torch.autograd.Function):
+    """``tap_gemm`` with K1's backward: dgrad by K1 on the mirrored plan,
+    wgrad by K1w, laid back into the dense stack."""
+
+    @staticmethod
+    def forward(ctx, flat, dense, nbr_idx, nbr_ok, taps, self_map):
+        # ``dense`` (taps.dense) is an input only so that autograd hands
+        # its gradient on to the layer's parameter; the product reads the
+        # prepared plan
+        ctx.save_for_backward(flat, nbr_idx, nbr_ok)
+        ctx.taps, ctx.self_map = taps, self_map
+        return tap_gemm(flat, nbr_idx, nbr_ok, taps.plan)
+
+    @staticmethod
+    def backward(ctx, dacc):
+        flat, nbr_idx, nbr_ok = ctx.saved_tensors
+        taps = ctx.taps
+        g = dacc.to(flat.dtype).contiguous()
+        dflat = ddense = None
+        if ctx.needs_input_grad[0]:
+            idx, ok = (nbr_idx, nbr_ok) if ctx.self_map else \
+                transposed_map(nbr_idx, nbr_ok, flat.shape[0])
+            dflat = tap_gemm(g, idx, ok, taps.plan_t()).to(flat.dtype)
+        if ctx.needs_input_grad[1]:
+            ddense = taps.plan.lay(tap_wgrad(flat, nbr_idx, nbr_ok, g,
+                                             taps.plan))
+        return dflat, ddense, None, None, None, None
+
+
+def _gemm(flat, nbr_idx, nbr_ok, weights, self_map=True):
+    """K1 under a conv: through ``TapGemm`` when the weights are prepared
+    for training and gradients are on, else ``tap_gemm``."""
+    if isinstance(weights, TrainTaps):
+        if torch.is_grad_enabled():
+            return TapGemm.apply(flat, weights.dense, nbr_idx, nbr_ok,
+                                 weights, self_map)
+        weights = weights.plan
+    return tap_gemm(flat, nbr_idx, nbr_ok, weights)
+
+
 # -- convs over bricks -------------------------------------------------------
 
 
@@ -556,14 +805,15 @@ def family_conv(fm_in: FamilyMap, in_feats, in_valid, weights, kernel_size,
     plan = _as_plan(weights, "conv", kernel_size, compute_dtype)
     cout = plan.k_out // 8
     flat = brick[:p_in].reshape(p_in, 8 * cin).to(compute_dtype)
-    acc = tap_gemm(flat, nbr_idx, nbr_ok, plan)
+    acc = _gemm(flat, nbr_idx, nbr_ok, plan, self_map=nbr_cross is None)
     if out_fm.contiguous and out_fm.num_parents == p_out:
         out = acc.reshape(p_out * 8, cout)
     else:
         out_brick = torch.cat([acc.reshape(p_out, 8, cout),
                                acc.new_zeros((1, 8, cout))], dim=0)
-        out = out_brick[out_fm.point_parent.clamp(max=p_out).to(torch.int64),
-                        out_fm.point_slot.to(torch.int64)]
+        out = take_rows(out_brick.reshape(-1, cout),
+                        out_fm.point_parent.clamp(max=p_out).to(torch.int64)
+                        * 8 + out_fm.point_slot)
     if out_keys_valid is not None:
         out = out * out_keys_valid[:, None].to(out.dtype)
     return out
@@ -588,7 +838,7 @@ def family_transpose_up(fm_parent_nbr, in_feats, in_valid, weights,
     nbr_idx, nbr_ok = fm_parent_nbr
     plan = _as_plan(weights, "transpose", kernel_size, compute_dtype)
     n_out = nbr_idx.shape[0]
-    acc = tap_gemm(x, nbr_idx, nbr_ok, plan)
+    acc = _gemm(x, nbr_idx, nbr_ok, plan)
     return acc.reshape(8 * n_out, plan.k_out // 8)
 
 
@@ -665,7 +915,7 @@ def grand_apply(g_nbr, in_brick, weights, kernel_size, mode,
     plan = _as_plan(weights, "grand_" + mode, kernel_size, compute_dtype)
     flat = in_brick.reshape(in_brick.shape[0], n_in * cin)[:g] \
         .to(compute_dtype).contiguous()
-    acc = tap_gemm(flat, nbr_idx, nbr_ok, plan)
+    acc = _gemm(flat, nbr_idx, nbr_ok, plan)
     return acc.reshape(g, n_out, plan.k_out // n_out)
 
 
@@ -679,5 +929,5 @@ def family_down_conv(fm_in: FamilyMap, in_feats, in_valid, weights,
     cin = in_feats.shape[-1]
     plan = _as_plan(weights, "down", kernel_size, compute_dtype)
     flat = brick[:p].reshape(p, 8 * cin).to(compute_dtype)
-    acc = tap_gemm(flat, fm_in.nbr_idx, fm_in.nbr_ok, plan)
+    acc = _gemm(flat, fm_in.nbr_idx, fm_in.nbr_ok, plan)
     return acc * C.key_is_valid(fm_in.parent_keys)[:, None].to(acc.dtype)

@@ -57,6 +57,17 @@ class SparseTensor:
         return dataclasses.replace(self, **kw)
 
 
+def take_rows(x, idx):
+    """``x[idx]`` along the first dimension, by ``index_select``: its
+    gradient is one ``index_add_``.  Advanced indexing's gradient sorts
+    the indices and adds repeats of one index one after another, and the
+    gathers of training repeat one index thousands of times (padding and
+    clipped rows, every point of a batch item); the repeats carry masked
+    zeros, so the sum does not depend on the order."""
+    flat = torch.index_select(x, 0, idx.reshape(-1).to(torch.int64))
+    return flat.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
+
+
 def compact_plain(keys, keep, *arrays, out_capacity=None):
     """Plain PyTorch version of ``compact`` (same results bit for bit)."""
     n = keys.shape[0]
@@ -180,6 +191,41 @@ def _check_compact_fit(plan, device):
                          f"block fits an SM ({blocks})")
 
 
+def compact_grad(keep, grad_out, m):
+    """The gradient of one ``compact`` payload at its source rows: the
+    output gradient at each kept row's rank (the inclusive prefix count of
+    ``keep``, less one), zero at dropped rows and at rows past ``m``.  The
+    transpose of the compaction; plain torch (a gather)."""
+    dest = cumsum_i32(keep) - 1
+    ok = keep & (dest < m)
+    g = grad_out[dest.clamp(0, max(m - 1, 0)).to(torch.int64)] if m else \
+        grad_out.new_zeros((keep.shape[0],) + grad_out.shape[1:])
+    okr = ok.reshape((-1,) + (1,) * (grad_out.dim() - 1))
+    return torch.where(okr, g, torch.zeros((), dtype=g.dtype,
+                                           device=g.device))
+
+
+class _Compact(torch.autograd.Function):
+    """``compact`` with gradients to the payloads that need them."""
+
+    @staticmethod
+    def forward(ctx, keys, keep, m, *arrays):
+        ctx.save_for_backward(keep)
+        ctx.m = m
+        outs = _compact(keys, keep, *arrays, out_capacity=m)
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.is_floating_point()])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (keep,) = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:]
+        return (None, None, None, *[
+            compact_grad(keep, g, ctx.m) if n and g is not None else None
+            for n, g in zip(need, grads[1:])])
+
+
 def compact(keys, keep, *arrays, out_capacity=None):
     """Stable compaction: move kept rows to the front, sentinel/zero the tail.
 
@@ -188,7 +234,15 @@ def compact(keys, keep, *arrays, out_capacity=None):
     input keys are sorted and the compaction is stable, the output stays
     sorted.  On a CUDA tensor this launches kernel K3 (one launch for up to
     8 payloads, planned by ``compact_plan``); on a CPU tensor it runs
-    ``compact_plain``."""
+    ``compact_plain``.  With gradients on, a payload that requires one gets
+    it back through ``compact_grad``."""
+    m = out_capacity if out_capacity is not None else keys.shape[0]
+    if torch.is_grad_enabled() and any(a.requires_grad for a in arrays):
+        return _Compact.apply(keys, keep, m, *arrays)
+    return _compact(keys, keep, *arrays, out_capacity=m)
+
+
+def _compact(keys, keep, *arrays, out_capacity=None):
     if not keys.is_cuda:
         return compact_plain(keys, keep, *arrays, out_capacity=out_capacity)
     n = keys.shape[0]
@@ -256,6 +310,74 @@ def upsample_children_keys(keys):
     child = torch.where(C.key_is_valid(keys)[:, None], child,
                         C.sentinel_like(keys))
     return child.reshape(-1)
+
+
+def lookup(st: SparseTensor, query_keys):
+    """(idx int32, found bool) of query keys in ``st``; idx is clipped to a
+    valid gather index even where not found."""
+    idx = torch.searchsorted(st.keys, query_keys.contiguous())
+    idx = idx.clamp(max=st.capacity - 1)
+    found = (st.keys[idx] == query_keys) & C.key_is_valid(query_keys)
+    return idx.to(torch.int32), found
+
+
+def features_at(st: SparseTensor, query_keys):
+    """Features of ``st`` at the query keys, zeros where absent."""
+    idx, found = lookup(st, query_keys)
+    return take_rows(st.feats, idx) * found[:, None].to(st.feats.dtype)
+
+
+def with_feats(st: SparseTensor, feats, stride=None):
+    return SparseTensor(keys=st.keys, feats=feats, stride=stride or st.stride)
+
+
+def mask_feats(st: SparseTensor):
+    return st.feats * st.valid[:, None].to(st.feats.dtype)
+
+
+def from_points(batch, xyz, feats, capacity, stride=1, dedup=True):
+    """SparseTensor from (batch [N], integer xyz [N, 3], feats [N, C])
+    tensors: coordinates quantized to ``stride``, padded to ``capacity``,
+    sorted into Morton order (stable), clipped to ``capacity``, then
+    duplicate voxels dropped (first occurrence wins).  Rows with batch < 0
+    are padding."""
+    n = xyz.shape[0]
+    units = torch.div(xyz.to(torch.int32), stride, rounding_mode="floor")
+    keys = torch.where(batch >= 0, C.make_keys(batch.clamp(min=0), units),
+                       C.sentinel_like(units.to(torch.int64)))
+    if n < capacity:
+        keys = torch.cat([keys, torch.full((capacity - n,), C.SENTINEL,
+                                           dtype=torch.int64,
+                                           device=keys.device)])
+        feats = torch.cat([feats, feats.new_zeros((capacity - n,
+                                                   feats.shape[1]))])
+    order = torch.sort(keys, stable=True).indices[:capacity]
+    keys, feats = keys[order], feats[order].contiguous()
+    if dedup:
+        dup = torch.zeros_like(keys, dtype=torch.bool)
+        dup[1:] = keys[1:] == keys[:-1]
+        keys, feats = _compact(keys, ~dup & C.key_is_valid(keys), feats)
+    feats = feats * C.key_is_valid(keys)[:, None].to(feats.dtype)
+    return SparseTensor(keys=keys, feats=feats, stride=stride)
+
+
+def from_points_host(batch, xyz, feats, capacity, stride=1, device="cpu"):
+    """Host voxelization (``voxelize_host_np``), then the arrays moved to
+    ``device``."""
+    keys, f = voxelize_host_np(batch, xyz, feats, capacity, stride)
+    return SparseTensor(keys=torch.from_numpy(keys).to(device),
+                        feats=torch.from_numpy(f).to(device), stride=stride)
+
+
+def concat(tensors, capacity):
+    """Concatenate sparse tensors (same stride and channels) into one
+    sorted tensor, clipped to ``capacity``."""
+    keys = torch.cat([t.keys for t in tensors])
+    feats = torch.cat([t.feats for t in tensors])
+    order = torch.sort(keys, stable=True).indices
+    return SparseTensor(keys=keys[order][:capacity],
+                        feats=feats[order][:capacity],
+                        stride=tensors[0].stride)
 
 
 def _dedup_sorted(cand, capacity):

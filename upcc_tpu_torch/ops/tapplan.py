@@ -41,6 +41,7 @@ in steps of 16), and the extra products of a union block are exact zeros.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -92,6 +93,9 @@ class TapPlan:
     wpack: torch.Tensor   # [n_blocks, bn, bk], the compute dtype
     tap_ptr: torch.Tensor  # int32 [n_col, taps + 1], on wpack's device
     k0: torch.Tensor       # int32 [n_blocks], on wpack's device
+    _block_index: torch.Tensor = dataclasses.field(default=None, repr=False)
+    # set on a transposed plan: the forward plan it mirrors
+    mirror_of: "TapPlan" = dataclasses.field(default=None, repr=False)
 
     @property
     def n_col(self):
@@ -115,12 +119,50 @@ class TapPlan:
     def dense(self):
         """The [T, K_in, K_out] stack rebuilt from the listed blocks (every
         unlisted block is zero)."""
+        return self.lay(self.wpack.transpose(1, 2))
+
+    def lay(self, blocks):
+        """A dense [T, K_in, K_out] stack holding ``blocks`` [n_blocks, bk,
+        bn] (K by N, in list order) at the listed places, zero elsewhere;
+        the parts of edge blocks beyond K_in or K_out are dropped."""
         nkb, ncol = -(-self.k_in // self.bk), self.n_col
-        out = self.wpack.new_zeros((self.taps, nkb, self.bk, ncol, self.bn))
+        out = blocks.new_zeros((self.taps, nkb, self.bk, ncol, self.bn))
         tap, kb, col = self._index()
-        out[tap, kb, :, col, :] = self.wpack.transpose(1, 2)
+        out[tap, kb, :, col, :] = blocks
         return out.reshape(self.taps, nkb * self.bk, ncol * self.bn)[
             :, :self.k_in, :self.k_out]
+
+    def blocks_of(self, stack):
+        """The listed [bk, bn] blocks (K by N) of a dense [T, K_in, K_out]
+        stack, zero padded at the K and N edges: [n_blocks, bk, bn]."""
+        nkb, ncol = -(-self.k_in // self.bk), self.n_col
+        wp = torch.nn.functional.pad(
+            stack, (0, ncol * self.bn - self.k_out, 0, nkb * self.bk
+                    - self.k_in)).reshape(self.taps, nkb, self.bk, ncol,
+                                          self.bn)
+        tap, kb, col = self._index()
+        return wp[tap, kb, :, col, :]
+
+    def block_index(self):
+        """int32 [n_blocks, 3] (tap, first K, column block) of every listed
+        block, on the plan's device (built once per plan)."""
+        if self._block_index is None:
+            col = np.repeat(np.arange(self.n_col), np.diff(self.blk_ptr))
+            self._block_index = torch.as_tensor(
+                np.stack([self.blk_tap, self.blk_k0, col], 1)
+                .astype(np.int32), device=self.wpack.device).contiguous()
+        return self._block_index
+
+
+@functools.lru_cache(maxsize=256)
+def _block_list_of(struct_bytes, shape, cin, cout, bn, bk):
+    """``block_list`` cached by the slot structure (the lists depend on
+    the call shape alone; training prepares every layer each step)."""
+    struct = np.frombuffer(struct_bytes, bool).reshape(shape)
+    out = block_list(struct, cin, cout, bn, bk)
+    for a in out:
+        a.setflags(write=False)
+    return out
 
 
 def plan_from_dense(wstack, struct, cin, cout, bk=TAP_BK):
@@ -131,7 +173,9 @@ def plan_from_dense(wstack, struct, cin, cout, bk=TAP_BK):
     taps, k_in, k_out = wstack.shape
     assert struct.shape[1] * cin == k_in and struct.shape[2] * cout == k_out
     bn = choose_bn(k_out)
-    ptr, tap, k0 = block_list(struct, cin, cout, bn, bk)
+    struct = np.ascontiguousarray(struct, bool)
+    ptr, tap, k0 = _block_list_of(struct.tobytes(), struct.shape, cin, cout,
+                                  bn, bk)
     nkb, ncol = -(-k_in // bk), len(ptr) - 1
     dev = wstack.device
     col = np.repeat(np.arange(ncol), np.diff(ptr))
@@ -150,4 +194,15 @@ def plan_from_dense(wstack, struct, cin, cout, bk=TAP_BK):
         k_in=k_in, k_out=k_out, taps=taps, bn=bn, bk=bk, blk_ptr=ptr,
         blk_tap=tap, blk_k0=k0, wpack=wpack,
         tap_ptr=torch.as_tensor(tap_ptr.astype(np.int32), device=dev),
-        k0=torch.as_tensor(k0, device=dev))
+        k0=torch.tensor(k0, device=dev))
+
+
+def transposed_plan(wstack, struct, cin, cout, bk=TAP_BK):
+    """The plan of the mirrored, transposed stack ``W_T[k] = W[T-1-k]^T``
+    (slot structure ``struct[::-1]`` with slots in and out swapped): run on
+    a self neighbour map, whose tap T-1-k undoes tap k, K1 with it computes
+    the gradient of K1's input (see ``ops/family.py``)."""
+    struct = np.ascontiguousarray(np.asarray(struct, bool)[::-1]
+                                  .transpose(0, 2, 1))
+    return plan_from_dense(wstack.flip(0).transpose(1, 2), struct, cout, cin,
+                           bk)

@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights into the port.
+"""Carry weights between the JAX package and the port.
 
 ``load_flax_msgpack`` reads a flax ``serialization.to_bytes`` file with a
 small pure-Python msgpack reader (no ``msgpack``, no ``flax``): maps,
@@ -14,8 +14,17 @@ consumed and every module parameter supplied, with equal shapes.  Covered:
 g_a, g_s and the entropy model of ``UnifiedModel`` — which is everything
 the codec's serving surface runs (coded geometry, simulcast, streaming and
 the color layers add no parameter).
+
+``save_flax_msgpack`` writes the other way: the model's parameters as the
+nested flax tree, in ``flax.serialization.to_bytes``'s format (maps of
+str keys, arrays as msgpack extension 1), with a small pure-Python
+writer; ``dtype="bfloat16"`` writes the JAX package's compact snapshot
+(``upcc_tpu/utils/weights_io.py::save_compact``: every float leaf rounded
+to bfloat16, to nearest even).  Weights trained by the port then load
+under ``upcc_tpu`` with ``load_params``.
 """
 
+import os
 import struct
 
 import numpy as np
@@ -200,3 +209,118 @@ def load_weights(model, path):
     """Load a flax msgpack weight file into ``model`` (strict)."""
     model.load_state_dict(params_from_jax(load_flax_msgpack(path), model))
     return model
+
+
+class _Bf16:
+    """A bfloat16 array held as its uint16 bits (numpy has no bfloat16)."""
+
+    def __init__(self, a):
+        u = np.ascontiguousarray(a, np.float32).view(np.uint32) \
+            .astype(np.uint64)
+        rne = (u + 0x7FFF + ((u >> 16) & 1)) >> 16  # round to nearest even
+        self.bits = np.where(np.isnan(a), (u >> 16) | 0x40, rne) \
+            .astype(np.uint16)
+
+
+def _pack(obj, out):
+    """Append the msgpack encoding of ``obj`` (dict, list/tuple, str,
+    bytes, int, bool, None, or a numpy array as flax's extension 1)."""
+    if isinstance(obj, (np.ndarray, _Bf16)):
+        arr, name = (obj.bits, "bfloat16") if isinstance(obj, _Bf16) \
+            else (obj, obj.dtype.name)
+        payload = bytearray()
+        _pack([list(arr.shape), name, np.ascontiguousarray(arr).tobytes()],
+              payload)
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            out += bytes([fixext[n], 1])
+        elif n < 1 << 8:
+            out += struct.pack(">BBb", 0xC7, n, 1)
+        elif n < 1 << 16:
+            out += struct.pack(">BHb", 0xC8, n, 1)
+        else:
+            out += struct.pack(">BIb", 0xC9, n, 1)
+        out += payload
+    elif isinstance(obj, dict):
+        n = len(obj)
+        out += bytes([0x80 | n]) if n < 16 else \
+            struct.pack(">BH", 0xDE, n) if n < 1 << 16 else \
+            struct.pack(">BI", 0xDF, n)
+        for k, v in obj.items():
+            _pack(str(k), out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        n = len(obj)
+        out += bytes([0x90 | n]) if n < 16 else \
+            struct.pack(">BH", 0xDC, n) if n < 1 << 16 else \
+            struct.pack(">BI", 0xDD, n)
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, str):
+        b = obj.encode()
+        n = len(b)
+        out += bytes([0xA0 | n]) if n < 32 else \
+            struct.pack(">BB", 0xD9, n) if n < 1 << 8 else \
+            struct.pack(">BH", 0xDA, n) if n < 1 << 16 else \
+            struct.pack(">BI", 0xDB, n)
+        out += b
+    elif isinstance(obj, (bytes, bytearray)):
+        n = len(obj)
+        out += struct.pack(">BB", 0xC4, n) if n < 1 << 8 else \
+            struct.pack(">BH", 0xC5, n) if n < 1 << 16 else \
+            struct.pack(">BI", 0xC6, n)
+        out += obj
+    elif obj is None or isinstance(obj, bool):
+        out += bytes([{None: 0xC0, False: 0xC2, True: 0xC3}[obj]])
+    elif isinstance(obj, int):
+        if 0 <= obj < 0x80:
+            out += bytes([obj])
+        elif -32 <= obj < 0:
+            out += struct.pack(">b", obj)
+        elif obj >= 0:
+            for code, fmt, lim in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                                   (0xCE, ">I", 1 << 32),
+                                   (0xCF, ">Q", 1 << 64)):
+                if obj < lim:
+                    out += bytes([code]) + struct.pack(fmt, obj)
+                    break
+        else:
+            for code, fmt, lim in ((0xD0, ">b", 1 << 7), (0xD1, ">h", 1 << 15),
+                                   (0xD2, ">i", 1 << 31),
+                                   (0xD3, ">q", 1 << 63)):
+                if -lim <= obj:
+                    out += bytes([code]) + struct.pack(fmt, obj)
+                    break
+    else:
+        raise TypeError(f"cannot pack {type(obj).__name__}")
+    return out
+
+
+def flax_tree(model):
+    """The model's parameters as the nested flax tree of float32 numpy
+    arrays (names split at the dots)."""
+    tree = {}
+    for name, t in model.state_dict().items():
+        node = tree
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t.detach().float().cpu().numpy()
+    return tree
+
+
+def save_flax_msgpack(model, path, dtype="float32"):
+    """Write the model's parameters as a flax msgpack file ("float32", or
+    "bfloat16" for the compact snapshot)."""
+    def cast(node):
+        if isinstance(node, dict):
+            return {k: cast(v) for k, v in node.items()}
+        return _Bf16(node) if dtype == "bfloat16" else node
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"dtype {dtype!r}")
+    data = bytes(_pack(cast(flax_tree(model)), bytearray()))
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
