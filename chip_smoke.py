@@ -86,7 +86,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      dgrad, K1w 18, 35 preparations); every K1 dgrad (K1 on a mirrored
      plan) and K1w call of one recorded step against its plain version
      (K1w twice bit-equal), timed with its bound and a library call, K1w
-     also under three other row-chunk policies (WGRAD_POLICIES); the
+     also under its other choices (WGRAD_CHOICES), with each call's ok
+     density and the time to build its map's row lists, and the step's
+     18 K1w calls replayed in order under each choice; the
      K3 backward's rank gathers timed; one step under torch.profiler
      (device busy, K1 forward / dgrad / K1w ms and launches); whole-step
      gradients against the plain autograd path on 2 cubes (tolerances at
@@ -316,8 +318,9 @@ def check_tap_gemm(gen):
 
 def check_tap_wgrad(gen):
     """K1w against its plain version (the listed blocks of the dense
-    gradient) per call shape, two calls bit-equal; and K1 on a mirrored
-    plan over a self map against the plain dgrad (a scatter)."""
+    gradient) per call shape, under each of its choices (WGRAD_CHOICES),
+    the kept one twice bit-equal; and K1 on a mirrored plan over a self map
+    against the plain dgrad (a scatter)."""
     dev = "cuda"
     bf = torch.bfloat16
 
@@ -328,47 +331,80 @@ def check_tap_wgrad(gen):
                             device=dev, dtype=torch.int32)
         ok = torch.rand((rows, 27), generator=gen, device=dev) < p_ok
         if edit is not None:
-            edit(ok)
+            edit(idx, ok)
         flat = torch.randn((n_src, plan.k_in), generator=gen,
                            device=dev).to(bf)
         dacc = torch.randn((rows, plan.k_out), generator=gen,
                            device=dev).to(bf)
-        got = F.tap_wgrad(flat, idx, ok, dacc, plan)
-        again = F.tap_wgrad(flat, idx, ok, dacc, plan)
         ref = plan.blocks_of(F.tap_wgrad_plain(flat, idx, ok, dacc))
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
         tol = 1e-3 * float(ref.abs().max()) + 1e-5
+        errs = {}
+        for choice, kw in WGRAD_CHOICES.items():
+            got = F.tap_wgrad(flat, idx, ok, dacc, plan, **kw)
+            errs[choice] = float((got - ref).abs().max())
+        got = F.tap_wgrad(flat, idx, ok, dacc, plan)
+        drop_lists(ok)  # the second call builds its row lists again
+        again = F.tap_wgrad(flat, idx, ok, dacc, plan)
+        torch.cuda.synchronize()
         same = torch.equal(got.view(torch.int32), again.view(torch.int32))
-        chunk, chunks = F.wgrad_chunks(rows, plan.n_blocks,
+        tiles = plan.wgrad_tiles(plan.n_col > 1).cpu().numpy()
+        chunk, splits = F.wgrad_splits(rows, len(tiles),
                                        F._sm_count(flat.device))
         print(f"[k1w] {kind} k{ks} {name}: rows={rows} K_in={plan.k_in} "
               f"K_out={plan.k_out} BN={plan.bn} listed_blocks="
-              f"{plan.n_blocks} chunks={chunks}x{chunk} max_abs_err="
-              f"{err:.3e} tol={tol:.3e} two calls bit-equal={same}",
-              flush=True)
-        assert err <= tol, f"tap_wgrad {name} disagrees with its plain version"
+              f"{plan.n_blocks} tiles={len(tiles)} (single-column "
+              f"{int((tiles[:, 2] == 1).sum())}) splits={splits}x{chunk} "
+              f"ok density {float(ok.float().mean()):.3f} max_abs_err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" tol={tol:.3e} two calls bit-equal={same}", flush=True)
+        assert max(errs.values()) <= tol, \
+            f"tap_wgrad {name} disagrees with its plain version"
         assert same, f"tap_wgrad {name}: two calls differ"
-        return got
+        return got, plan
+
+    def tap_off(idx, ok):
+        ok[:, 5] = False
+
+    def all_ok(idx, ok):
+        ok.fill_(True)
+
+    def beyond(idx, ok):  # every index past the source: the clamp
+        idx += 5000
 
     case("1024->512", 3000, 2500, "conv", 3, 128, 64)
     case("512->8 (K_out 8)", 1500, 1200, "conv", 3, 64, 1)
     case("1536->2048 (hs3)", 1024, 4096, "conv", 3, 192, 256)
     case("1536->1536 (C 192)", 777, 900, "conv", 3, 192, 192)
-    case("1024->128, many chunks", 40000, 20000, "down", 5, 128, 128)
+    case("1024->128, many splits", 40000, 20000, "down", 5, 128, 128)
+    case("512->8, 40,000 rows (many splits)", 40000, 20000, "conv", 3, 64,
+         1)
     case("128->1024, ragged rows", 4100, 4000, "transpose", 5, 128, 128)
     case("256->1024 (cin 4)", 1000, 1000, "grand_down", 5, 4, 128)
+    case("32->1024 (K_in 32)", 1000, 1000, "down", 5, 4, 128)
     case("1024->2048 (cout 32)", 1000, 1000, "grand_transpose", 5, 128, 32)
     case("2048->1024 (cout 16)", 1001, 1000, "grand_conv", 3, 32, 16)
-    case("1024->64 (cout 1)", 1000, 1000, "grand_conv", 3, 16, 1)
+    case("1024->64 (cout 1, BN 64)", 1000, 1000, "grand_conv", 3, 16, 1)
+    case("rows < 64", 40, 100, "conv", 3, 128, 64)
+    case("rows 97", 97, 100, "conv", 3, 64, 1)
+    case("a tap no row reaches", 3000, 2000, "conv", 3, 128, 64,
+         edit=tap_off)
+    case("all ok", 3000, 2000, "grand_conv", 3, 16, 1, edit=all_ok)
+    case("every index >= n_src", 2000, 700, "conv", 3, 128, 64,
+         edit=beyond)
+    _, plan = case("1024->1536, odd column blocks a pair", 2000, 2000,
+                   "conv", 3, 128, 192)
+    t = plan.wgrad_tiles().cpu().numpy()
+    assert any(a[2] == 2 and b[2] == 1 and (a[0], a[1]) == (b[0], b[1])
+               for a, b in zip(t[:-1], t[1:])), \
+        "no single-column tile follows a pair of its (tap, K block)"
 
-    def sparse_taps(ok):
+    def sparse_taps(idx, ok):
         ok[:, 20:] = False
         ok[:4096, 3:11] = False
     case("taps missing whole steps", 9000, 800, "conv", 3, 128, 64,
          edit=sparse_taps)
     assert not case("all ok = 0", 333, 500, "conv", 3, 64, 64,
-                    edit=lambda ok: ok.zero_()).any()
+                    edit=lambda idx, ok: ok.zero_())[0].any()
 
     # dgrad: K1 on the mirrored plan over a self map of a random key set
     units = torch.randint(0, 48, (6000, 3), generator=gen, device=dev,
@@ -1351,16 +1387,16 @@ TRAIN_KEYS = {
         "bpp-y": {"type": "BPPLoss", "key": "y", "weight": 1.0},
         "bpp-z": {"type": "BPPLoss", "key": "z", "weight": 1.0}},
 }
-# K1w's row-chunk policies timed on the recorded calls: the wrapper's
-# (enough (block, chunk) pairs for 16 thread blocks an SM), 4 and 64 an SM,
-# and one chunk a call (no partial sums)
-_KEPT = F.wgrad_chunks
-WGRAD_POLICIES = {
-    "kept": _KEPT,
-    "4 an SM": lambda rows, nb, sms: _KEPT(rows, nb, sms // 4),
-    "64 an SM": lambda rows, nb, sms: _KEPT(rows, nb, 4 * sms),
-    "one chunk": lambda rows, nb, sms: (
-        -(-rows // F.WGRAD_ROWS) * F.WGRAD_ROWS, 1),
+# K1w's choices (ops/family.py::tap_wgrad), each held against the plain
+# version in phase 2 and timed on the recorded training calls: the kept
+# one (the wrapper's defaults), single-column tiles, zero-filled rows
+# instead of row lists, and two other split targets
+WGRAD_CHOICES = {
+    "kept": {},
+    "single-column tiles": {"pairs": False},
+    "zero-fill": {"row_lists": False},
+    "4 an SM": {"per_sm": 4},
+    "16 an SM": {"per_sm": 16},
 }
 TRAIN_TIMED_STEPS = 5
 TRAIN_FALL_STEPS = 20
@@ -1433,7 +1469,7 @@ def plain_autograd(fn):
 def train_profile(tr, st, q, lam, root):
     """One step under torch.profiler, forward and backward in separate
     windows: (device busy ms, {name: (ms, launches)}) for K1 forward, K1
-    dgrad and K1w."""
+    dgrad, K1w and the row gathers' gradients."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1468,8 +1504,15 @@ def train_profile(tr, st, q, lam, root):
     busy = sum(_device_us(e) for e in ev_f + ev_b) / 1e3
     return busy, wall, {"K1 forward": pick(ev_f, "tap_mainloop"),
                         "K1 dgrad": pick(ev_b, "tap_mainloop"),
-                        "K1w": pick(ev_b, "wgrad_kernel"),
-                        "K1w reduce": pick(ev_b, "wgrad_reduce")}
+                        "K1w": pick(ev_b, "tap_wgrad_kernel"),
+                        "row-gather gradients (index_add_)":
+                            pick(ev_b, "indexFuncLargeIndex")}
+
+
+def drop_lists(ok):
+    """Forget the K1w row lists kept on a map (ops/family.py::
+    wgrad_row_lists), so that the next call builds them."""
+    ok.__dict__.pop("_wgrad_row_lists", None)
 
 
 def check_recorded_backward(record):
@@ -1477,7 +1520,7 @@ def check_recorded_backward(record):
     recorded step against its plain version (tolerance as K1's), K1w
     twice bit-equal; each timed beside its plain version, a library call
     and its bound.  Returns the K1w and K1 dgrad rows and the K3 backward
-    gather's ms."""
+    gathers' ms and bound."""
     torch.set_grad_enabled(False)
     try:
         return _check_recorded_backward(record)
@@ -1487,7 +1530,6 @@ def check_recorded_backward(record):
 
 def _check_recorded_backward(record):
     wg = {id(c[4]): c for c in record.get("tap_wgrad", [])}
-    policy_ms = {}
     rows = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                 "library_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0,
                 "t_ops": 0.0, "calls": 0}
@@ -1515,7 +1557,12 @@ def _check_recorded_backward(record):
         assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
             "tap_wgrad: two calls on the same inputs differ"
         del got, again, ref, dense
+        # per call: the kernel with its map's row lists kept (as every
+        # layer after the first on a map finds them), and with the lists
+        # built afresh, as the first layer on a map does
         t_k = cuda_time(lambda: F.tap_wgrad(flat, idx, ok, dacc, plan), 3)
+        t_cold = cuda_time(lambda: (drop_lists(ok), F.tap_wgrad(
+            flat, idx, ok, dacc, plan)), 3)
         t_p = cuda_time(lambda: F.tap_wgrad_plain(flat, idx, ok, dacc), 1)
         n, taps = idx.shape
         stack = (flat[idx.clamp(max=flat.shape[0] - 1).long()]
@@ -1528,23 +1575,60 @@ def _check_recorded_backward(record):
         flops = float(2 * (ok.sum(0).double() * nnz).sum())
         nbytes = (flat.numel() * 2 + dacc.numel() * 2 + idx.numel() * 5
                   + float(nnz.sum()) * 4)
-        t_pol = {}
-        for pol, fn in WGRAD_POLICIES.items():
-            F.wgrad_chunks = fn
-            try:
-                t_pol[pol] = cuda_time(
-                    lambda: F.tap_wgrad(flat, idx, ok, dacc, plan), 3)
-            finally:
-                F.wgrad_chunks = WGRAD_POLICIES["kept"]
-            policy_ms[pol] = policy_ms.get(pol, 0.0) + t_pol[pol]
+        t_pol = {choice: cuda_time(
+            lambda: F.tap_wgrad(flat, idx, ok, dacc, plan, **kw), 3)
+            for choice, kw in WGRAD_CHOICES.items()}
+        t_lists = cuda_time(lambda: (drop_lists(ok), F.wgrad_row_lists(ok)),
+                            3)
+        dens = ok.float().mean(0)
+        n_tiles = len(plan.wgrad_tiles(plan.n_col > 1))
         print(f"[k1w train] rows={n} K_in={plan.k_in} K_out={plan.k_out} "
-              f"listed_blocks={plan.n_blocks} chunks="
-              f"{F.wgrad_chunks(n, plan.n_blocks, F._sm_count(ok.device))} "
-              f"err={err:.3e} kernel={t_k:.3f} ms plain={t_p:.3f} ms "
-              f"matmul={t_l:.3f} ms bound={bound_ms(nbytes, flops)[0]:.4f} "
-              f"ms; chunk policies " + ", ".join(
+              f"listed_blocks={plan.n_blocks} tiles={n_tiles} splits="
+              f"{F.wgrad_splits(n, n_tiles, F._sm_count(ok.device))} "
+              f"ok density {float(dens.mean()):.3f} (taps "
+              f"{float(dens.min()):.3f}-{float(dens.max()):.3f}) "
+              f"err={err:.3e} kernel={t_cold:.3f} ms (lists kept "
+              f"{t_k:.3f}) plain={t_p:.3f} ms matmul={t_l:.3f} ms bound="
+              f"{bound_ms(nbytes, flops)[0]:.4f} ms; row lists alone "
+              f"{t_lists:.3f} ms; choices, lists kept: " + ", ".join(
                   f"{k} {v:.3f} ms" for k, v in t_pol.items()), flush=True)
-        add("tap_wgrad", err, t_k, t_p, t_l, nbytes, flops)
+        add("tap_wgrad", err, t_cold, t_p, t_l, nbytes, flops)
+    # the step's calls in order, each map's lists built by its first layer,
+    # under each choice: K1w's time over the step
+    calls = record.get("tap_wgrad", [])
+
+    def replay(kw):
+        for c in calls:
+            drop_lists(c[2])
+        for flat, idx, ok, dacc, plan in calls:
+            F.tap_wgrad(flat, idx, ok, dacc, plan, **kw)
+    step_ms = {choice: cuda_time(lambda: replay(kw), 3)
+               for choice, kw in WGRAD_CHOICES.items()}
+
+    def in_step():  # each call's share of one kept replay (CUDA events)
+        for c in calls:
+            drop_lists(c[2])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in calls] + [
+            torch.cuda.Event(enable_timing=True)]
+        ev[0].record()
+        for i, (flat, idx, ok, dacc, plan) in enumerate(calls):
+            F.tap_wgrad(flat, idx, ok, dacc, plan)
+            ev[i + 1].record()
+        ev[-1].synchronize()
+        return np.array([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+    in_step()
+    share = np.mean([in_step() for _ in range(3)], 0)
+    print("[k1w step] each call's ms in the step's order (lists built by "
+          "the first call on a map): " + " ".join(f"{v:.3f}" for v in share),
+          flush=True)
+    rows["tap_wgrad"]["calls_ms"] = rows["tap_wgrad"]["ms"]
+    rows["tap_wgrad"]["ms"] = step_ms["kept"]
+    print(f"[train] K1w over the step's {len(calls)} calls in order "
+          f"({len({id(c[2]) for c in calls})} maps, lists built once a map) "
+          "by choice: " + ", ".join(f"{k} {v:.3f} ms"
+                                   for k, v in step_ms.items())
+          + f"; each call building its own lists: "
+          f"{rows['tap_wgrad']['calls_ms']:.3f} ms", flush=True)
 
     for g, idx, ok, plan_t in record.get("tap_gemm", []):
         if plan_t.mirror_of is None:
@@ -1578,23 +1662,50 @@ def _check_recorded_backward(record):
         add("dgrad", err, t_k, t_p, t_l, nbytes, flops)
     assert rows["dgrad"]["calls"] == len(wg) - 1, \
         "every layer but g_a's first must have run its dgrad"
-    print("[train] K1w summed over the step's calls by chunk policy: "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in policy_ms.items()),
-          flush=True)
 
-    # the K3 backward: a rank gather per differentiable payload
-    gather_ms = 0.0
+    # the K3 backward: a rank gather per differentiable payload; its bound
+    # reads keep and the output gradient once and writes the payload
+    # gradient once, zeros included
+    gather = {"ms": 0.0, "bound_ms": 0.0}
     for keys, keep, arrays, m in record.get("compact", []):
         for a in arrays:
             if a.is_floating_point():
                 gout = torch.ones((m,) + a.shape[1:], dtype=a.dtype,
                                   device=a.device)
-                gather_ms += cuda_time(
+                gather["ms"] += cuda_time(
                     lambda: sparse.compact_grad(keep, gout, m), 5)
+                row = a[:1].numel() * a.element_size()
+                gather["bound_ms"] += bound_ms(
+                    keep.numel() + (m + a.shape[0]) * row, 0)[0]
     for r in rows.values():
         r["bound_by"] = "bytes" if r["t_bytes"] >= r["t_ops"] \
             else "operations"
-    return rows, gather_ms
+    return rows, gather
+
+
+def around_k1w(model, plans):
+    """The plain-torch work on either side of K1w in a step: laying its
+    blocks into the dense stack (``TapPlan.lay``) over the step's plans,
+    and over the tap layers the dense stack's forward (``_dense_taps``,
+    part of each step's weight preparation) and its backward, which
+    carries dW to the parameter.  Returns (lay ms, (forward ms, backward
+    ms))."""
+    lay = sum(cuda_time(lambda: plan.lay(torch.ones(
+        (plan.n_blocks, plan.bk, plan.bn), device="cuda")), 3)
+        for plan in plans)
+    fwd = both = 0.0
+    for m in model.modules():
+        if not isinstance(m, _TapConv) or (m.kind == "transpose"
+                                           and m.kernel_size == 2):
+            continue
+        kind = ("grand_" if m.grand else "") + m.kind
+        w = m.w.detach().clone().requires_grad_()
+        g = torch.ones_like(F._dense_taps(w, kind, m.kernel_size))
+        fwd += cuda_time(lambda: F._dense_taps(w.detach(), kind,
+                                               m.kernel_size), 3)
+        both += cuda_time(lambda: torch.autograd.grad(
+            F._dense_taps(w, kind, m.kernel_size), w, g), 3)
+    return lay, (fwd, both - fwd)
 
 
 def run_train(smi):
@@ -1672,7 +1783,8 @@ def run_train(smi):
         kernels.RECORD = {}
         tr.step_fn(st, q, lam, root, gen)
         record, kernels.RECORD = kernels.RECORD, None
-        rows, gather_ms = check_recorded_backward(record)
+        rows, gather = check_recorded_backward(record)
+        record_lay = [c[4] for c in record.get("tap_wgrad", [])]
         del record
         for name, r in rows.items():
             print(f"[train] {name}: {r['calls']} calls, kernel="
@@ -1681,7 +1793,14 @@ def run_train(smi):
                   f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}",
                   flush=True)
         print(f"[train] K3 backward (rank gather, plain torch) over the "
-              f"step's compactions: {gather_ms:.3f} ms", flush=True)
+              f"step's compactions: {gather['ms']:.3f} ms, bound "
+              f"{gather['bound_ms']:.4f} ms (bytes)", flush=True)
+
+        lay_ms, taps_ms = around_k1w(tr.model, record_lay)
+        del record_lay
+        print(f"[train] plain torch around K1w a step: plan.lay of its "
+              f"blocks {lay_ms:.3f} ms; _dense_taps forward {taps_ms[0]:.3f}"
+              f" ms, backward {taps_ms[1]:.3f} ms", flush=True)
 
         busy, wall, prof = train_profile(tr, st, q, lam, root)
         med = float(np.median(times))

@@ -1,5 +1,6 @@
 // The tap gather-GEMM mainloop shared by K1 (tap_gemm.cu) and P1
-// (tile_tapconv.cu), for Hopper (sm_90a).
+// (tile_tapconv.cu), for Hopper (sm_90a); K1w (tap_wgrad.cu) uses its copy
+// and wgmma helpers and the MN-major ones below.
 //
 //   out[r, :] = sum over the listed (tap, K block) pairs of
 //               src[row(r, tap), k0 : k0 + BK] @ W[tap][k0 : k0 + BK, cols]
@@ -270,6 +271,73 @@ __device__ __forceinline__ void wgmma_ss<float, 128>(float (&d)[64], uint64_t da
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// MN-major operand tile (K1w, tap_wgrad.cu): rows of 128 bytes hold 64
+// consecutive M (or N) elements of one K index, 128-byte swizzle as above.
+// 8-row K groups are 1024 bytes apart.  A tile read by one instruction
+// spans one 64-element swizzle atom in M/N, so the offset between atoms is
+// never used; it is set to the same 1024 bytes so that the descriptor
+// means the same whichever of its two offsets the K-group stride is.
+__device__ __forceinline__ uint64_t make_desc_mn(uint32_t saddr) {
+  uint64_t d = (uint64_t)((saddr & 0x3FFFF) >> 4);
+  d |= (uint64_t)(1024 >> 4) << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+// D[64 x N] += A[64 x k] * B[k x N], bf16, both tiles MN-major in shared
+// memory (transpose immediates set: legal for 16-bit types only); a k-step
+// of 16 advances both descriptors by 16 rows (2048 bytes)
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<32>(float (&d)[16], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<64>(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
 }
 

@@ -55,10 +55,12 @@ _SIGNATURES = {
                           _P, _I64, _I64, _P, _P],
     },
     "tap_wgrad": {
-        # flat, n_src, k_in, idx, ok, rows, taps, dacc, k_out, block index,
-        # n_blocks, bn, chunk rows, chunks, partials, out, stream
+        # flat, n_src, k_in, idx, ok, rows, taps, dacc, k_out, wgrad tiles,
+        # n_tiles, pairs, row lists, list ends, n_blocks, bn, chunk, splits,
+        # partials, tickets, out, stream
         "upcc_tap_wgrad": [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _I64, _P,
-                           _I64, _I64, _I64, _I64, _P, _P, _P],
+                           _I64, _I64, _P, _P, _I64, _I64, _I64, _I64, _P,
+                           _P, _P, _P],
     },
     "topk_mask": {
         # keys, logits, k, n, maxb, resident, grid, per_block, histograms,

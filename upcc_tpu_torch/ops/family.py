@@ -35,6 +35,7 @@ from . import coords as C
 from . import tapplan
 from .scan import cumsum_i32
 from .sparse import take_rows
+from .topk import _buffer
 
 
 def default_compute_dtype(device):
@@ -621,26 +622,77 @@ def tap_wgrad_plain(flat, nbr_idx, nbr_ok, dacc):
         for k in range(nbr_idx.shape[1])])
 
 
-# K1w splits the rows into chunks of a multiple of this many; each (block,
-# chunk) pair is one thread block writing its partial sum, and a second
-# pass adds the partials in chunk order (no atomics: equal inputs give equal
-# bits)
-WGRAD_ROWS = 32
+# K1w's grid is (wgrad tiles) x (row splits): each split covers a fixed
+# range of its tap's row list, a multiple of WGRAD_ROWS entries (whole
+# stages of the kernel), and the last split of a tile to finish adds the
+# splits' partial sums in split order (no float atomics: equal inputs give
+# equal bits).  The split count comes from rows alone, never from the
+# device.
+WGRAD_ROWS = 64
+WGRAD_MIN_CHUNK = 1024  # rows a split at least covers
+WGRAD_PER_SM = 8        # thread blocks an SM the grid aims at
 
 
-def wgrad_chunks(rows, n_blocks, sms):
-    """(rows a chunk, chunks) of a K1w call: enough (block, chunk) pairs
-    for 16 thread blocks an SM, chunks of at least 256 rows."""
-    want = max(1, min(-(-16 * sms // max(n_blocks, 1)), -(-rows // 256)))
-    chunk = -(-rows // want)
+def wgrad_splits(rows, n_tiles, sms, per_sm=WGRAD_PER_SM,
+                 min_chunk=WGRAD_MIN_CHUNK):
+    """(chunk, splits) of a K1w call: split s covers list entries
+    [s * chunk, min((s + 1) * chunk, rows)); at most ``per_sm`` thread
+    blocks an SM over the (tile, split) grid and splits of at least
+    ``min_chunk`` rows (a call whose tiles alone fill the card has one)."""
+    want = max(1, min(per_sm * sms // max(n_tiles, 1), rows // min_chunk))
+    chunk = -(-max(rows, 1) // want)
     chunk = -(-chunk // WGRAD_ROWS) * WGRAD_ROWS
     return chunk, max(1, -(-rows // chunk))
 
 
-def tap_wgrad(flat, nbr_idx, nbr_ok, dacc, plan):
+def wgrad_row_lists(nbr_ok):
+    """K1w's per-tap row lists, on the device and without a host sync:
+    (lists int32 [T * rows + 1], ends int64 [T * rows]), tap-major.  ends
+    is the running count of ok^T flattened, so tap t's count is
+    ends[(t + 1) rows - 1] - ends[t rows - 1] (the second term 0 for t =
+    0); its rows with ok[r, t], ascending, are lists[1 + ends[t rows - 1] +
+    i] - t rows for i < count (entry 0 takes the writes of the rows the tap
+    misses).  Built once per map: kept on ``nbr_ok`` with its version, so
+    the layers of a step that share a map share the lists."""
+    hit = getattr(nbr_ok, "_wgrad_row_lists", None)
+    if hit is not None and hit[0] == nbr_ok._version:
+        return hit[1], hit[2]
+    rows, taps = nbr_ok.shape
+    ok_t = nbr_ok.t().reshape(-1)
+    ends = torch.cumsum(ok_t, 0)
+    lists = torch.empty(taps * rows + 1, dtype=torch.int32,
+                        device=nbr_ok.device)
+    lists.scatter_(0, ends * ok_t, _arange(taps * rows, nbr_ok.device))
+    nbr_ok._wgrad_row_lists = (nbr_ok._version, lists, ends)
+    return lists, ends
+
+
+_aranges = {}
+
+
+def _arange(n, device):
+    """int32 [0, n) on ``device``, a view of one kept buffer."""
+    buf = _aranges.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _aranges[device] = torch.arange(
+            max(n, 1 << 20), dtype=torch.int32, device=device)
+    return buf[:n]
+
+
+# K1w's per-tile tickets per (device, stream): zero on entry, and the
+# kernel leaves them zero
+_tickets = {}
+
+
+def tap_wgrad(flat, nbr_idx, nbr_ok, dacc, plan, pairs=True, row_lists=True,
+              per_sm=WGRAD_PER_SM):
     """The listed blocks of dW, f32 [n_blocks, bk, bn] (K by N, the plan's
     list order): kernel K1w on the card, ``tap_wgrad_plain`` on the CPU.
-    On CUDA tensors flat and dacc must be bf16."""
+    On CUDA tensors flat and dacc must be bf16.  ``pairs``: tiles of up to
+    two column blocks (else one); ``row_lists``: walk each tap's row list
+    (else every row, zero-filling the rows the tap misses); ``per_sm``: the
+    split target of ``wgrad_splits``.  None of the three changes which
+    products are summed; the defaults are the kernel's timed choice."""
     if not flat.is_cuda:
         return plan.blocks_of(tap_wgrad_plain(flat, nbr_idx, nbr_ok, dacc))
     rows, taps = nbr_idx.shape
@@ -651,30 +703,39 @@ def tap_wgrad(flat, nbr_idx, nbr_ok, dacc, plan):
     kernels.require_cuda(nbr_ok, torch.bool, 2, "tap_wgrad ok")
     if ((plan.taps, plan.k_in, plan.k_out) != (taps, k_in, dacc.shape[1])
             or dacc.shape[0] != rows or nbr_ok.shape != (rows, taps)
-            or plan.bk != tapplan.TAP_BK or plan.bn % 32 or plan.bn > 128
+            or plan.bk != tapplan.TAP_BK or plan.bn not in (32, 64, 128)
             or k_in % 8 or plan.k_out % 8 or not 1 <= n_src < 2 ** 31
-            or rows >= 2 ** 31):
+            or rows >= 2 ** 31 - 1):
         raise ValueError(f"tap_wgrad: bad shapes flat {tuple(flat.shape)}, "
                          f"dacc {tuple(dacc.shape)}, idx "
                          f"{tuple(nbr_idx.shape)}, plan "
                          f"{(plan.taps, plan.k_in, plan.k_out, plan.bn)}")
     nb = plan.n_blocks
+    dev = flat.device
     out = torch.empty((nb, plan.bk, plan.bn), dtype=torch.float32,
-                      device=flat.device)
+                      device=dev)
     if nb == 0:
         return out
     if rows == 0:
         return out.zero_()
-    chunk, n_chunks = wgrad_chunks(rows, nb, _sm_count(flat.device))
-    part = out if n_chunks == 1 else torch.empty(
-        (n_chunks, nb, plan.bk, plan.bn), dtype=torch.float32,
-        device=flat.device)
+    pairs = pairs and plan.n_col > 1  # one column block: nothing to pair
+    tiles = plan.wgrad_tiles(pairs)
+    n_tiles = tiles.shape[0]
+    chunk, splits = wgrad_splits(rows, n_tiles, _sm_count(dev), per_sm)
+    lists, ends = wgrad_row_lists(nbr_ok) if row_lists else (None, None)
+    stream = kernels.stream_ptr(flat)
+    part = tickets = None
+    if splits > 1:
+        part = torch.empty((splits, nb, plan.bk, plan.bn),
+                           dtype=torch.float32, device=dev)
+        tickets = _buffer(_tickets, (dev.index, stream), n_tiles, dev)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
     kernels.count_launch("tap_wgrad", flat, nbr_idx, nbr_ok, dacc, plan)
     kernels.check(kernels.lib("tap_wgrad").upcc_tap_wgrad(
         flat.data_ptr(), n_src, k_in, nbr_idx.data_ptr(), nbr_ok.data_ptr(),
-        rows, taps, dacc.data_ptr(), plan.k_out, plan.block_index().data_ptr(),
-        nb, plan.bn, chunk, n_chunks, part.data_ptr(), out.data_ptr(),
-        kernels.stream_ptr(flat)), "tap_wgrad")
+        rows, taps, dacc.data_ptr(), plan.k_out, tiles.data_ptr(), n_tiles,
+        int(bool(pairs)), ptr(lists), ptr(ends), nb, plan.bn, chunk, splits,
+        ptr(part), ptr(tickets), out.data_ptr(), stream), "tap_wgrad")
     return out
 
 

@@ -78,6 +78,33 @@ def block_list(struct, cin, cout, bn, bk):
             (kb * bk).astype(np.int32))
 
 
+def wgrad_tile_list(blk_ptr, blk_tap, blk_k0, pairs=True):
+    """The work list of kernel K1w (the weight gradient of K1) for a block
+    list: int32 [n_tiles, 8] rows (tap, first K, blocks, column 0, list
+    position 0, column 1, list position 1, 0), ordered by tap, then K, then
+    column.  A tile is one (tap, K block) pair and up to two of its listed
+    column blocks (one with ``pairs`` False); a pair with an odd number of
+    column blocks ends in a single-column tile.  Unused fields are -1."""
+    col = np.repeat(np.arange(len(blk_ptr) - 1), np.diff(blk_ptr))
+    order = np.lexsort((col, blk_k0, blk_tap))
+    tap, k0, col = blk_tap[order], blk_k0[order], col[order]
+    n = len(order)
+    new = np.ones(n, bool)
+    new[1:] = (tap[1:] != tap[:-1]) | (k0[1:] != k0[:-1])
+    rank = np.arange(n) - np.maximum.accumulate(np.where(new, np.arange(n),
+                                                         0))
+    first = np.nonzero(rank % (2 if pairs else 1) == 0)[0]
+    nxt = np.minimum(first + 1, max(n - 1, 0))
+    two = bool(pairs) & (first + 1 < n) & ~new[nxt]
+    tiles = np.full((len(first), 8), -1, np.int32)
+    tiles[:, 0], tiles[:, 1] = tap[first], k0[first]
+    tiles[:, 2] = 1 + two
+    tiles[:, 3], tiles[:, 4] = col[first], order[first]
+    tiles[two, 5], tiles[two, 6] = col[nxt[two]], order[nxt[two]]
+    tiles[:, 7] = 0
+    return tiles
+
+
 @dataclasses.dataclass
 class TapPlan:
     """One layer's prepared tap weights (see the module docstring)."""
@@ -93,7 +120,6 @@ class TapPlan:
     wpack: torch.Tensor   # [n_blocks, bn, bk], the compute dtype
     tap_ptr: torch.Tensor  # int32 [n_col, taps + 1], on wpack's device
     k0: torch.Tensor       # int32 [n_blocks], on wpack's device
-    _block_index: torch.Tensor = dataclasses.field(default=None, repr=False)
     # set on a transposed plan: the forward plan it mirrors
     mirror_of: "TapPlan" = dataclasses.field(default=None, repr=False)
 
@@ -143,15 +169,23 @@ class TapPlan:
         tap, kb, col = self._index()
         return wp[tap, kb, :, col, :]
 
-    def block_index(self):
-        """int32 [n_blocks, 3] (tap, first K, column block) of every listed
-        block, on the plan's device (built once per plan)."""
-        if self._block_index is None:
-            col = np.repeat(np.arange(self.n_col), np.diff(self.blk_ptr))
-            self._block_index = torch.as_tensor(
-                np.stack([self.blk_tap, self.blk_k0, col], 1)
-                .astype(np.int32), device=self.wpack.device).contiguous()
-        return self._block_index
+    def wgrad_tiles(self, pairs=True):
+        """``wgrad_tile_list`` of this plan on its device.  Cached by the
+        block list, which ``_block_list_of`` hands to every plan of one
+        slot structure: training prepares its plans afresh each step and
+        never rebuilds this."""
+        key = (id(self.blk_tap), self.wpack.device, bool(pairs))
+        hit = _WGRAD_TILES.get(key)
+        if hit is None or hit[0] is not self.blk_tap:
+            hit = _WGRAD_TILES[key] = (self.blk_tap, torch.as_tensor(
+                wgrad_tile_list(self.blk_ptr, self.blk_tap, self.blk_k0,
+                                pairs), device=self.wpack.device))
+        return hit[1]
+
+
+# (block list's tap array, device, pairs) -> (that array, the tile list);
+# holding the array keeps its id from being reused
+_WGRAD_TILES = {}
 
 
 @functools.lru_cache(maxsize=256)
