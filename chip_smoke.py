@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the whole check, one card
     python3 chip_smoke.py --kernels  # build + kernel checks only
     python3 chip_smoke.py --train    # build + K1w checks + phase 11 only
+    python3 chip_smoke.py --parallel # build + phases 12-15 only
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi); build the CUDA kernels
@@ -98,7 +99,34 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      of 3 steps with validation through real bitstreams at q = (1, 1)
      (val.csv) and a resume from its checkpoint.  Phase 2 also holds K1w
      against its plain version on edge cases (bit-equal twice) and K1 on
-     mirrored plans against the plain dgrad.
+     mirrored plans against the plain dgrad;
+ 12. ``[region train]``: region-candidate training at abl_region5's widths
+     (seeded init) on train frame 0 cut into 64^3 cubes, the packer's
+     fullest batch of 4 at the trainer's auto capacity: median step ms of
+     5, peak memory, K1 forward / dgrad and K1w launches a step, every K1
+     dgrad and K1w call of a recorded step within 1e-3 x max|plain| (the
+     cross maps' calls timed), the int64 key arithmetic's device ms
+     (reported), whole-step gradients against plain autograd (GRAD_TOL),
+     the training loss falling on a fixed batch (REGION_FALL_RATIO);
+ 13. ``[parallel dp]`` at flagship widths on [train]'s batch A and the
+     next fullest B, gated where each step clips (its gradients before
+     Adam, its clip norm) and on the parameters after the update, each
+     tensor within TOL_SPREADS times the largest difference between
+     SPREAD_RUNS sequential steps on A, at least TOL_ULPS ulps of its
+     largest value: a data-parallel step at
+     world size 1 on NCCL against the sequential step; two gloo ranks
+     sharing cuda:0 (NCCL refuses two ranks on one card) on A and B
+     against one in-process update on the mean of their gradients, and
+     bit-identical state_dicts after 3 steps; step ms on each rank (two
+     processes on one card, not a multi-GPU speed);
+ 14. ``[parallel 2d]``: the 1x2 sharded step on the same two gloo ranks
+     against the sequential step on A, each rank's parameter and Adam
+     bytes;
+ 15. ``[parallel codec]``: the flagship codec with devices=["cuda:0",
+     "cuda:0"] on the vox10 frame at block 512 with MAX_GROUP 3 (restored
+     after): bytes, decode and compress_multi at two q's equal to the
+     sequential codec's, launches 19/3/3 a group (K1 8 an encode and 11 a
+     decode pass).  Phases 12-15 print their seconds.
 The last three lines are the nvidia-smi line, the kernels JSON line and
 the result line {"ok": true, "device": {...}}.
 
@@ -108,6 +136,7 @@ max|kernel - plain| <= 1e-3 * max|plain| + 1e-5.
 """
 
 import csv
+import itertools
 import json
 import math
 import os
@@ -1426,15 +1455,25 @@ def train_config(root):
     return cfg
 
 
-def make_train_data(root):
-    """The training set of one vox10 frame: train frame 0 of make_synth
-    (scan_like_cloud, default_rng(0), extent 1024, 760,000 points) cut into
-    128^3 cubes; the same frame whole as the validation set."""
+_TRAIN_FRAME = []
+
+
+def train_frame():
+    """Train frame 0 of make_synth (scan_like_cloud, default_rng(0), extent
+    1024, 760,000 points), made once."""
+    if not _TRAIN_FRAME:
+        from upcc_tpu_torch.data.synthetic import scan_like_cloud
+        _TRAIN_FRAME.append(scan_like_cloud(np.random.default_rng(0),
+                                            extent=1024, n_target=760_000))
+    return _TRAIN_FRAME[0]
+
+
+def make_train_data(root, cube=128):
+    """The training set of one vox10 frame: ``train_frame()`` cut into
+    cube^3 cubes; the same frame whole as the validation set."""
     from upcc_tpu_torch.data.dataset import slice_into_cubes, write_split
-    from upcc_tpu_torch.data.synthetic import scan_like_cloud
-    xyz, rgb = scan_like_cloud(np.random.default_rng(0), extent=1024,
-                               n_target=760_000)
-    cubes = slice_into_cubes(xyz, rgb, 128)
+    xyz, rgb = train_frame()
+    cubes = slice_into_cubes(xyz, rgb, cube)
     data = os.path.join(root, "data")
     os.makedirs(data)
     write_split(os.path.join(data, "train.npz"), [c[0] for c in cubes],
@@ -1723,14 +1762,7 @@ def run_train(smi):
         cfg = train_config(tmp)
         tr = Training(cfg, capacity="auto", device="cuda",
                       renders=False)
-        # the epoch's fullest batch of batch_size cubes from the packer
-        # (bucketing puts the smallest cubes first; the last batches of
-        # the largest cubes hold fewer)
-        def cubes_in(b):
-            return len(set(b[0][b[0] >= 0].tolist()))
-        batch = max((b for b in tr._batches(np.random.default_rng(0))
-                     if cubes_in(b) == tr.batch_size),
-                    key=lambda b: int((b[0] >= 0).sum()))
+        batch = fullest_batches(tr)[0]
         st, root = tr.batch_tensors(batch)
         q, lam = tr.q_func.sample(torch.Generator().manual_seed(0),
                                   tr.batch_size)
@@ -1811,45 +1843,7 @@ def run_train(smi):
                   f"{k} {ms:.3f} ms in {n} launches"
                   for k, (ms, n) in prof.items()), flush=True)
 
-        # whole-step gradients against the plain autograd path
-        small = collate_small(tr, GRAD_BATCH)
-        sst, sroot = tr.batch_tensors(small)
-        grads = []
-        for route in ("kernel", "plain"):
-            def run():
-                tr.model.zero_grad(set_to_none=True)
-                total, _ = tr.step_fn.loss(sst, q, lam, sroot)
-                total.backward()
-                return {n: p.grad.detach().clone()
-                        for n, p in tr.model.named_parameters()
-                        if p.grad is not None}
-            with torch.random.fork_rng(devices=[0]):
-                torch.cuda.manual_seed(1)
-                grads.append(run() if route == "kernel"
-                             else plain_autograd(run))
-        assert set(grads[0]) == set(grads[1])
-        rel = {n: float(torch.linalg.vector_norm(grads[0][n] - g)
-                        / torch.linalg.vector_norm(g).clamp(min=1e-30))
-               for n, g in grads[1].items()}
-        rel_max = {n: float((grads[0][n] - g).abs().max()
-                            / g.abs().max().clamp(min=1e-30))
-                   for n, g in grads[1].items()}
-        total_rel = float(torch.sqrt(sum(
-            torch.sum((grads[0][n] - g) ** 2) for n, g in grads[1].items())
-            / sum(torch.sum(g ** 2) for g in grads[1].values())))
-        worst = max(rel, key=rel.get)
-        worst_max = max(rel_max, key=rel_max.get)
-        print(f"[train] whole-step gradients, kernels vs plain autograd, "
-              f"{GRAD_BATCH} cubes, {len(rel)} parameters: worst "
-              f"||diff||/||plain|| {rel[worst]:.3e} ({worst}; tolerance "
-              f"{GRAD_TOL_EACH}), median "
-              f"{float(np.median(list(rel.values()))):.3e}, over all "
-              f"parameters {total_rel:.3e} (tolerance {GRAD_TOL})"
-              f"; worst max|diff|/max|plain| {rel_max[worst_max]:.3e} "
-              f"({worst_max})", flush=True)
-        assert total_rel <= GRAD_TOL and rel[worst] <= GRAD_TOL_EACH, \
-            "gradients disagree with the plain path"
-        del grads
+        check_step_gradients(tr, q, lam, "train")
 
         # the loss on one fixed batch, fixed q and fixed noise, over 20
         # steps, from a fresh seeded init (gated: the training loss, main +
@@ -1910,6 +1904,61 @@ def run_train(smi):
         return rows, launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cubes_in(b):
+    return len(set(b[0][b[0] >= 0].tolist()))
+
+
+def fullest_batches(tr):
+    """The epoch's batches of batch_size cubes from the packer, fullest
+    first (bucketing puts the smallest cubes first; the last batches of
+    the largest cubes hold fewer)."""
+    return sorted((b for b in tr._batches(np.random.default_rng(0))
+                   if cubes_in(b) == tr.batch_size),
+                  key=lambda b: -int((b[0] >= 0).sum()))
+
+
+def check_step_gradients(tr, q, lam, tag):
+    """Whole-step gradients on GRAD_BATCH cubes, kernels against the plain
+    autograd path (plain_autograd), gated by GRAD_TOL and GRAD_TOL_EACH."""
+    small = collate_small(tr, GRAD_BATCH)
+    sst, sroot = tr.batch_tensors(small)
+    grads = []
+    for route in ("kernel", "plain"):
+        def run():
+            tr.model.zero_grad(set_to_none=True)
+            total, _ = tr.step_fn.loss(sst, q, lam, sroot)
+            total.backward()
+            return {n: p.grad.detach().clone()
+                    for n, p in tr.model.named_parameters()
+                    if p.grad is not None}
+        with torch.random.fork_rng(devices=[0]):
+            torch.cuda.manual_seed(1)
+            grads.append(run() if route == "kernel"
+                         else plain_autograd(run))
+    assert set(grads[0]) == set(grads[1])
+    rel = {n: float(torch.linalg.vector_norm(grads[0][n] - g)
+                    / torch.linalg.vector_norm(g).clamp(min=1e-30))
+           for n, g in grads[1].items()}
+    rel_max = {n: float((grads[0][n] - g).abs().max()
+                        / g.abs().max().clamp(min=1e-30))
+               for n, g in grads[1].items()}
+    total_rel = float(torch.sqrt(sum(
+        torch.sum((grads[0][n] - g) ** 2) for n, g in grads[1].items())
+        / sum(torch.sum(g ** 2) for g in grads[1].values())))
+    worst = max(rel, key=rel.get)
+    worst_max = max(rel_max, key=rel_max.get)
+    print(f"[{tag}] whole-step gradients, kernels vs plain autograd, "
+          f"{GRAD_BATCH} cubes, {len(rel)} parameters: worst "
+          f"||diff||/||plain|| {rel[worst]:.3e} ({worst}; tolerance "
+          f"{GRAD_TOL_EACH}), median "
+          f"{float(np.median(list(rel.values()))):.3e}, over all "
+          f"parameters {total_rel:.3e} (tolerance {GRAD_TOL})"
+          f"; worst max|diff|/max|plain| {rel_max[worst_max]:.3e} "
+          f"({worst_max})", flush=True)
+    assert total_rel <= GRAD_TOL and rel[worst] <= GRAD_TOL_EACH, \
+        f"{tag}: gradients disagree with the plain path"
 
 
 def collate_small(tr, n):
@@ -1978,6 +2027,573 @@ def run_eval():
           f"committed test.csv's {len(cols)}", flush=True)
 
 
+# -- phases 12-15: region-candidate training and the multi-device paths ------
+
+# abl_region5's training keys (configs/ablation/abl_region5.yaml; a test
+# holds them equal) over TRAIN_KEYS; the model is weights.ABL_REGION5_CONFIG
+REGION_TRAIN_KEYS = {
+    "experiment_name": "abl_region5",
+    "min_points_train": 100,
+    "transforms": {"train": {
+        "1_ColorJitter": {"key": "ColorJitter"},
+        "2_Rotate": {"key": "RandomRotate", "block_size": 64}}},
+    "epochs": 40,
+    "batch_size": 4,
+    "scheduler_step_size": 150,
+    "val_every": 0,
+}
+REGION_TRAIN_CUBE = 64
+# the region fall gate: over REGION_FALL_STEPS steps on one fixed batch,
+# the mean loss of the last REGION_FALL_WINDOW steps at most
+# REGION_FALL_RATIO of the first's.  From the seeded init Adam's first
+# update (about lr * sign(g) on every weight) raises the loss ~13% and it
+# plateaus ~15 steps before it descends, so 20 steps first against last
+# leaves a margin of a few percent
+REGION_FALL_STEPS = 40
+REGION_FALL_WINDOW = 10
+REGION_FALL_RATIO = 0.9
+
+
+def region_train_config(root):
+    """abl_region5's training config with its data and results under
+    ``root`` (TRAIN_KEYS without the flagship's bucketing and corner
+    sampling, REGION_TRAIN_KEYS over them)."""
+    cfg = train_config(root)
+    del cfg["batch_bucketing"], cfg["q_map"]["corner_p"]
+    cfg.update({k: (dict(v) if isinstance(v, dict) else v)
+                for k, v in REGION_TRAIN_KEYS.items()})
+    cfg["model"] = {k: dict(v) for k, v in ABL_REGION5_CONFIG.items()}
+    return cfg
+
+
+def run_region_train(smi):
+    """Region-candidate training at abl_region5's widths (seeded init) on
+    train frame 0 cut into 64^3 cubes, the packer's fullest batch of 4 at
+    the trainer's auto capacity: step time and memory, the launches a step,
+    every K1 dgrad and K1w call of one recorded step against its plain
+    version (the cross maps' calls timed), the int64 key arithmetic's
+    device time, whole-step gradients against plain autograd, and the loss
+    on a fixed batch over REGION_FALL_STEPS steps (gated to fall by
+    REGION_FALL_RATIO)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from upcc_tpu_torch.training.trainer import Training
+    tmp = tempfile.mkdtemp(prefix="upcc_region_train_")
+    try:
+        t0 = time.time()
+        n_pts, n_cubes = make_train_data(tmp, REGION_TRAIN_CUBE)
+        cfg = region_train_config(tmp)
+        tr = Training(cfg, capacity="auto", device="cuda", renders=False)
+        assert not tr.model.g_s.grand_finest
+        batch = fullest_batches(tr)[0]
+        st, root = tr.batch_tensors(batch)
+        q, lam = tr.q_func.sample(torch.Generator().manual_seed(0),
+                                  tr.batch_size)
+        q, lam = q.cuda(), lam.cuda()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        print(f"[region train] {n_pts} points -> {n_cubes} cubes of "
+              f"{REGION_TRAIN_CUBE}^3 ({len(tr.train_ds)} with >= "
+              f"{cfg['min_points_train']} points); auto capacity "
+              f"{tr.capacity}; fullest batch of {tr.batch_size}: "
+              f"{int((batch[0] >= 0).sum())} points at capacity "
+              f"{len(batch[0])}; set-up {time.time() - t0:.1f} s",
+              flush=True)
+        for _ in range(2):  # warm-up
+            tr.step_fn(st, q, lam, root, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        times = []
+        for _ in range(TRAIN_TIMED_STEPS):
+            t0 = time.perf_counter()
+            met = tr.step_fn(st, q, lam, root, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v // TRAIN_TIMED_STEPS
+                    for k, v in kernels.LAUNCHES.items() if v}
+        assert all(math.isfinite(float(v)) for v in met.values()), met
+        for name in ("tap_gemm", "tap_wgrad", "topk_mask", "compact"):
+            assert launches.get(name, 0) > 0, \
+                f"region train: {name} was not launched"
+
+        kernels.RECORD = {}
+        tr.step_fn(st, q, lam, root, gen)
+        record, kernels.RECORD = kernels.RECORD, None
+        fwd = [c for c in record["tap_gemm"] if c[3].mirror_of is None]
+        dgr = [c for c in record["tap_gemm"] if c[3].mirror_of is not None]
+        wgr = record["tap_wgrad"]
+        print(f"[region train] step ms over {TRAIN_TIMED_STEPS} steps: "
+              f"median {float(np.median(times)):.1f} (min {min(times):.1f}, "
+              f"max {max(times):.1f}); max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB; launches a step {launches}: K1 "
+              f"{len(fwd)} forward + {len(dgr)} dgrad, K1w {len(wgr)}; loss "
+              "parts " + ", ".join(f"{k}={float(v):.4f}"
+                                    for k, v in met.items())
+              + f" | {smi}", flush=True)
+        assert len(fwd) + len(dgr) == launches["tap_gemm"]
+        assert len(wgr) == launches["tap_wgrad"] == len(dgr) + 1
+
+        # every K1w and K1 dgrad call against its plain version; the cross
+        # maps' calls (the three region transposes and h_s's head) timed
+        torch.set_grad_enabled(False)
+        try:
+            wg = {id(c[4]): c for c in wgr}
+            cross = {"K1w": [0, 0.0, 0.0], "K1 dgrad": [0, 0.0, 0.0]}
+            worst = 0.0
+            for flat, idx, ok, dacc, plan in wgr:
+                got = F.tap_wgrad(flat, idx, ok, dacc, plan)
+                ref = plan.blocks_of(F.tap_wgrad_plain(flat, idx, ok, dacc))
+                err = float((got - ref).abs().max())
+                rel = err / max(float(ref.abs().max()), 1e-30)
+                assert err <= 1e-3 * float(ref.abs().max()) + 1e-5, \
+                    "region train: K1w disagrees with its plain version"
+                worst = max(worst, rel)
+                if idx.shape[0] != flat.shape[0]:  # a cross map
+                    c = cross["K1w"]
+                    c[0] += 1
+                    c[1] += cuda_time(lambda: F.tap_wgrad(
+                        flat, idx, ok, dacc, plan), 3)
+                    c[2] += cuda_time(lambda: F.tap_wgrad_plain(
+                        flat, idx, ok, dacc), 1)
+            for g, idx, ok, plan_t in dgr:
+                flat, fidx, fok, dacc, plan = wg[id(plan_t.mirror_of)]
+                got = F.tap_gemm(g, idx, ok, plan_t)
+                ref = F.tap_dgrad_plain(dacc, fidx, fok, plan, flat.shape[0])
+                err = float((got - ref).abs().max())
+                assert err <= 1e-3 * float(ref.abs().max()) + 1e-5, \
+                    "region train: K1 dgrad disagrees with its plain version"
+                worst = max(worst, err / max(float(ref.abs().max()), 1e-30))
+                if fidx.shape[0] != flat.shape[0]:
+                    c = cross["K1 dgrad"]
+                    c[0] += 1
+                    c[1] += cuda_time(lambda: F.tap_gemm(g, idx, ok, plan_t),
+                                      3)
+                    c[2] += cuda_time(lambda: F.tap_dgrad_plain(
+                        dacc, fidx, fok, plan, flat.shape[0]), 1)
+        finally:
+            torch.set_grad_enabled(True)
+        del record, wg
+        print(f"[region train] every K1w ({len(wgr)}) and K1 dgrad "
+              f"({len(dgr)}) call within 1e-3 x max|plain| (worst "
+              f"{worst:.3e}); on the cross maps: " + "; ".join(
+                  f"{k} {n} calls kernel {t:.3f} ms plain {tp:.3f} ms"
+                  for k, (n, t, tp) in cross.items()), flush=True)
+        assert cross["K1w"][0] >= 3 and cross["K1 dgrad"][0] >= 3
+        del fwd, dgr, wgr
+
+        # where the step's device time goes: K1, K1w, and the elementwise
+        # kernels on int64 (the key arithmetic of dilation and search)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.step_fn(st, q, lam, root, gen)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+        busy = sum(_device_us(e) for e in ev) / 1e3
+        pick = lambda f: (sum(_device_us(e) for e in ev if f(e.key)) / 1e3,
+                          sum(e.count for e in ev if f(e.key)))
+        i64 = pick(lambda k: "long" in k and ("elementwise" in k
+                                              or "reduce" in k))
+        print(f"[region train] one step under torch.profiler: device busy "
+              f"{busy:.1f} ms; K1 {pick(lambda k: 'tap_mainloop' in k)[0]:.3f}"
+              f" ms; K1w {pick(lambda k: 'tap_wgrad_kernel' in k)[0]:.3f} ms;"
+              f" int64 key arithmetic (elementwise and reduce kernels on "
+              f"int64) {i64[0]:.3f} ms in {i64[1]} launches (reported, not "
+              f"fixed: ROADMAP)", flush=True)
+
+        check_step_gradients(tr, q, lam, "region train")
+
+        # the training loss on one fixed batch over REGION_FALL_STEPS steps
+        del tr
+        tr = Training(cfg, capacity="auto", device="cuda", renders=False)
+        trail = []
+        for _ in range(REGION_FALL_STEPS):
+            gen.manual_seed(1)
+            trail.append({k: float(v) for k, v in
+                          tr.step_fn(st, q, lam, root, gen).items()})
+        w = REGION_FALL_WINDOW
+        fall = np.mean([t["loss"] for t in trail[-w:]]) \
+            / np.mean([t["loss"] for t in trail[:w]])
+        print(f"[region train] on one fixed batch over {REGION_FALL_STEPS} "
+              f"steps from the seeded init, by step: training loss "
+              + " ".join(f"{t['loss']:.3f}" for t in trail)
+              + "; RD loss (without aux) "
+              + " ".join(f"{t['loss'] - t['aux_loss']:.3f}" for t in trail)
+              + "; aux " + " ".join(f"{t['aux_loss']:.3f}" for t in trail)
+              + "; parts at the first and last step: "
+              + ", ".join(f"{k} {trail[0][k]:.4f} -> {trail[-1][k]:.4f}"
+                          for k in trail[0])
+              + f"; mean training loss of the last {w} steps over the first "
+              f"{w}'s {fall:.4f} (at most {REGION_FALL_RATIO})", flush=True)
+        assert all(math.isfinite(t["loss"]) for t in trail)
+        assert fall <= REGION_FALL_RATIO, "region train: the loss did not fall"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def flagship_step(cfg, cls=None, **kw):
+    """The trainer's seeded flagship model, loss and step class (default
+    TrainStep) on the card, as Training builds them."""
+    from upcc_tpu_torch.training.loss import Loss
+    from upcc_tpu_torch.training.train_step import TrainStep
+    torch.manual_seed(cfg.get("seed", 0))
+    mcfg = dict(cfg["model"], max_batch=cfg["batch_size"])
+    model = UnifiedModel(mcfg).cuda()
+    return (cls or TrainStep)(model, Loss(cfg["loss"], cfg["batch_size"]),
+                              cfg, **kw)
+
+
+def batch_inputs(cfg, arrays):
+    from upcc_tpu_torch.models.unified import host_root_maps
+    keys, feats = arrays
+    x = SparseTensor(torch.from_numpy(keys).cuda(),
+                     torch.from_numpy(feats).cuda())
+    return x, host_root_maps(keys, cfg["model"], "cuda")
+
+
+def params_of(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def max_diff(a, b):
+    return max(float((a[n].float() - b[n].float().to(a[n].device))
+                     .abs().max()) for n in a)
+
+
+def ulp(x):
+    """One unit in the last place of the f32 value x >= 0."""
+    m = torch.tensor(float(x))
+    return float(torch.nextafter(m, torch.tensor(math.inf)) - m)
+
+
+# the sequential steps whose largest pairwise difference is the spread,
+# and the spreads a tolerance takes: a single pair's gradient difference
+# moved 3.5x between runs (4.7e-10 to 1.6e-9), and a data-parallel step's
+# reached 0.70 of twice the largest of three pairs' (1.6e-9 against
+# 1.2e-9); the gates' bugs (a sum for a mean, a norm missing or doubling a
+# part) move gradients or the norm by far more
+SPREAD_RUNS = 3
+TOL_SPREADS = 4
+# the floor of a tolerance, in ulps of the tensor's largest |value|: one
+# rounding moves a value by an ulp, and two sequential steps may agree to
+# the bit; at a one-ulp floor the 1x2 step once passed at exactly 1.00
+TOL_ULPS = 4
+
+
+def tolerance_ratio(got, ref, spread):
+    """The largest, over tensors, of max|got - ref| over the tensor's
+    tolerance: TOL_SPREADS times ``spread`` (the largest difference
+    between sequential steps), at least TOL_ULPS ulps of the tensor's
+    largest |value|.  At most 1 passes."""
+    return max(float((got[n].float().cpu() - r.float().cpu()).abs().max())
+               / max(TOL_SPREADS * spread, TOL_ULPS * ulp(r.abs().max()))
+               for n, r in ref.items())
+
+
+def norm_ratio(got, ref, spread):
+    """|got - ref| over the clip norm's tolerance, by the same rule."""
+    return abs(got - ref) / max(TOL_SPREADS * spread, TOL_ULPS * ulp(ref))
+
+
+def watch_clip(step):
+    """Records where ``step`` clips, before its optimizer runs: every
+    gradient the optimizer holds (``pre``, on the host, by parameter name;
+    a sharded leaf's: this rank's slice) and the global norm it clips by
+    (``norm``).  After Adam's first update a parameter has moved by about
+    lr * sign(g), which shows neither the gradient's size nor the clip."""
+    main, aux = ([n for n, _ in step.model.named_parameters()
+                  if (n.split(".")[-1] == "quantiles") == is_aux]
+                 for is_aux in (False, True))
+    log = {}
+    clip = step.clip_gradients
+
+    def spy(params):
+        groups = step.optimizer.param_groups
+        log["pre"] = {n: t.grad.detach().cpu()
+                      for names, g in zip((main, aux), groups)
+                      for n, t in zip(names, g["params"])
+                      if t.grad is not None}
+        norm = clip(params)
+        log["norm"] = float(norm)
+        return norm
+    step.clip_gradients = spy
+    return log
+
+
+def parallel_rank(rank, world, cfg, batches, q, lam, out):
+    """A rank of [parallel dp] / [parallel 2d] (two gloo ranks on one
+    card): 3 data-parallel steps on its own batch, then one 1x2 sharded
+    step on batch 0.  Writes its results to <out>/rank<r>.pt."""
+    import hashlib
+    from upcc_tpu_torch.parallel import data_parallel as dp
+    from upcc_tpu_torch.parallel.model_parallel import (ShardedTrainStep,
+                                                        make_mesh_2d)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    q, lam = q.cuda(), lam.cuda()
+    step = flagship_step(cfg, dp.DataParallelStep)
+    log = watch_clip(step)
+    x, root = batch_inputs(cfg, batches[rank])
+    times, res = [], {}
+    for s in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(x, q, lam, root, dp.noise_generator("cuda", 0, s, rank))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if s == 0:
+            res["after1"] = {n: p.cpu() for n, p in
+                             params_of(step.model).items()}
+            res["clip1"] = dict(log)
+    h = hashlib.sha256()
+    for t in step.model.state_dict().values():
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    res.update(hash=h.hexdigest(), times=times)
+    del step
+    torch.cuda.empty_cache()
+    step = flagship_step(cfg, ShardedTrainStep, mesh=make_mesh_2d(1, 2))
+    res["2d_clip"] = watch_clip(step)
+    x, root = batch_inputs(cfg, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(x, q, lam, root, dp.noise_generator("cuda", 0, 0, 0))
+    torch.cuda.synchronize()
+    res["2d_ms"] = (time.perf_counter() - t0) * 1e3
+    full = step.full_parameters()
+    res["2d"] = {n: p.cpu() for n, p in full.items()} if rank == 0 else None
+    res["owned"] = step.owned_bytes()
+    res["full_bytes"] = sum(p.numel() * p.element_size()
+                            for p in full.values())
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def run_parallel_train(smi):
+    """[parallel dp] and [parallel 2d] at flagship widths on [train]'s
+    batch (and the next fullest, batch B).  SPREAD_RUNS sequential steps
+    give the tolerances (``tolerance_ratio``: index_add_'s atomics leave a
+    step nondeterministic at f32 rounding).  Gated where each step clips
+    (``watch_clip``: its gradients and clip norm) and after the update: a
+    data-parallel step at world size 1 on NCCL; two gloo ranks sharing
+    cuda:0 on batches A and B against one in-process update on the mean of
+    A's and B's gradients (``reference_step``), and bit-identical after 3
+    steps; the 1x2 sharded step on two gloo ranks against the sequential
+    step."""
+    from upcc_tpu_torch.parallel import data_parallel as dp
+    from upcc_tpu_torch.parallel import multihost
+    from upcc_tpu_torch.parallel.model_parallel import sharded
+    from upcc_tpu_torch.training.trainer import Training
+    from upcc_tpu_torch.ops.sparse import voxelize_host_np
+    tmp = tempfile.mkdtemp(prefix="upcc_parallel_")
+    try:
+        t0 = time.time()
+        make_train_data(tmp)
+        cfg = train_config(tmp)
+        tr = Training(cfg, capacity="auto", device="cuda", renders=False)
+        cap = tr.capacity
+        batches = [voxelize_host_np(b, x, c, cap)
+                   for b, x, c in fullest_batches(tr)[:2]]
+        q, lam = tr.q_func.sample(torch.Generator().manual_seed(0),
+                                  tr.batch_size)
+        del tr
+        gen = lambda s, shard: dp.noise_generator("cuda", 0, s, shard)
+        xa, ra = batch_inputs(cfg, batches[0])
+        xb, rb = batch_inputs(cfg, batches[1])
+        qc, lc = q.cuda(), lam.cuda()
+        print(f"[parallel dp] flagship widths, batches A and B of 8 cubes at "
+              f"capacity {cap}: {int((batches[0][0] != C.SENTINEL).sum())} "
+              f"and {int((batches[1][0] != C.SENTINEL).sum())} voxels; "
+              f"set-up {time.time() - t0:.1f} s", flush=True)
+
+        kernels.reset_launches()
+        seq, seq_clip = [], []
+        for _ in range(SPREAD_RUNS):
+            step = flagship_step(cfg)
+            seq_clip.append(watch_clip(step))
+            step(xa, qc, lc, ra, gen(0, 0))
+            seq.append(params_of(step.model))
+            del step
+        pairs = list(itertools.combinations(range(SPREAD_RUNS), 2))
+        spread = max(max_diff(seq[i], seq[j]) for i, j in pairs)
+        gspread = max(max_diff(seq_clip[i]["pre"], seq_clip[j]["pre"])
+                      for i, j in pairs)
+        nspread = max(abs(seq_clip[i]["norm"] - seq_clip[j]["norm"])
+                      for i, j in pairs)
+        assert seq_clip[0]["norm"] > cfg["clip_grad_norm"], \
+            "parallel dp: the clip does not bind"
+
+        def clip_ratios(log, ref):
+            """(gradient, norm) ratios of a clip record to ``ref``'s."""
+            return (tolerance_ratio(log["pre"], ref["pre"], gspread),
+                    norm_ratio(log["norm"], ref["norm"], nspread))
+        launches = dict(kernels.LAUNCHES)
+        for name in ("tap_gemm", "tap_wgrad", "topk_mask", "compact"):
+            assert launches[name] > 0, f"parallel dp: {name} not launched"
+
+        # world size 1 on NCCL
+        multihost.initialize(f"tcp://localhost:{multihost.free_port()}", 1,
+                             0, device="cuda")
+        try:
+            assert torch.distributed.get_backend() == "nccl"
+            step = flagship_step(cfg, dp.DataParallelStep)
+            log = watch_clip(step)
+            step(xa, qc, lc, ra, gen(0, 0))
+            got = params_of(step.model)
+            nccl = (max_diff(got, seq[0]), tolerance_ratio(got, seq[0],
+                                                           spread),
+                    *clip_ratios(log, seq_clip[0]))
+            del step, got, log
+        finally:
+            torch.distributed.destroy_process_group()
+        print(f"[parallel dp] tolerances, each {TOL_SPREADS} times the "
+              f"largest difference between {SPREAD_RUNS} sequential steps "
+              f"on batch A, at least "
+              f"{TOL_ULPS} ulp "
+              f"of the tensor's largest |value|: the gradients where the "
+              f"step clips, before the optimizer ({gspread:.3e}), the clip "
+              f"norm {seq_clip[0]['norm']:.6g} (clip "
+              f"{cfg['clip_grad_norm']}; {nspread:.3e}), the parameters "
+              f"after the update ({spread:.3e}); the data-parallel step at "
+              f"world size 1 on NCCL: gradients {nccl[2]:.3f}, norm "
+              f"{nccl[3]:.3f}, parameters {nccl[1]:.3f} of a tolerance "
+              f"(parameters differ by {nccl[0]:.3e})", flush=True)
+        assert max(nccl[1:]) <= 1, "parallel dp: the NCCL step disagrees"
+
+        # the in-process reference of two ranks on A and B
+        step = flagship_step(cfg)
+        ref_ab_clip = watch_clip(step)
+        dp.reference_step(step, [(xa, qc, lc, ra, gen(0, 0)),
+                                 (xb, qc, lc, rb, gen(0, 1))])
+        ref_ab = params_of(step.model)
+        del step, xa, xb, ra, rb
+        torch.cuda.empty_cache()
+
+        t0 = time.time()
+        multihost.spawn(parallel_rank, 2, (cfg, batches, q, lam, tmp),
+                        device="cuda:0", backend="gloo", timeout=600)
+        secs = time.time() - t0
+        out = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False) for r in range(2)]
+        dp_diff = (max_diff(out[0]["after1"], ref_ab),
+                   tolerance_ratio(out[0]["after1"], ref_ab, spread))
+        dp_clip = [clip_ratios(o["clip1"], ref_ab_clip) for o in out]
+        print(f"[parallel dp] two gloo ranks sharing cuda:0 (two processes "
+              f"on one card, not a multi-GPU speed): step ms rank 0 "
+              + " ".join(f"{t:.1f}" for t in out[0]["times"]) + ", rank 1 "
+              + " ".join(f"{t:.1f}" for t in out[1]["times"])
+              + "; first step on A and B against the in-process "
+              f"mean-gradient update: gradients where each rank clips "
+              + " / ".join(f"{g:.3f}" for g, _ in dp_clip)
+              + ", norm " + " / ".join(f"{n:.3f}" for _, n in dp_clip)
+              + f", parameters {dp_diff[1]:.3f} of a tolerance (differ by "
+              f"{dp_diff[0]:.3e}); after 3 steps the two state_dicts' "
+              f"sha256 {out[0]['hash'][:16]} / {out[1]['hash'][:16]}; "
+              f"spawned ranks {secs:.1f} s", flush=True)
+        assert max(dp_diff[1], *(v for r in dp_clip for v in r)) <= 1, \
+            "parallel dp: the gloo step disagrees"
+        assert out[0]["hash"] == out[1]["hash"], \
+            "parallel dp: the replicas differ after 3 steps"
+
+        d2 = (max_diff(out[0]["2d"], seq[0]),
+              tolerance_ratio(out[0]["2d"], seq[0], spread))
+        d2_clip = []
+        for r, o in enumerate(out):  # rank r holds slice r of the sharded
+            ref = {n: g[..., r * (g.shape[-1] // 2):
+                        (r + 1) * (g.shape[-1] // 2)]
+                   if sharded(g.shape, 2) else g
+                   for n, g in seq_clip[0]["pre"].items()}
+            d2_clip.append(clip_ratios(o["2d_clip"],
+                                       {"pre": ref,
+                                        "norm": seq_clip[0]["norm"]}))
+        for r, o in enumerate(out):
+            params, moments = o["owned"]
+            print(f"[parallel 2d] 1x2 sharded step, rank {r}: parameter "
+                  f"bytes {params / 2**20:.2f} MiB, Adam moment bytes "
+                  f"{moments / 2**20:.2f} MiB (whole model "
+                  f"{o['full_bytes'] / 2**20:.2f} MiB); step "
+                  f"{o['2d_ms']:.1f} ms (two processes on one card)",
+                  flush=True)
+            assert params < 0.6 * o["full_bytes"]
+        print(f"[parallel 2d] against the 1x1 (sequential) step, by "
+              f"[parallel dp]'s tolerances: each rank's gradient slices "
+              f"where it clips " + " / ".join(f"{g:.3f}" for g, _ in d2_clip)
+              + ", the norm it clips by "
+              + " / ".join(f"{n:.3f}" for _, n in d2_clip)
+              + f", the gathered parameters after the step {d2[1]:.3f} of a "
+              f"tolerance (differ by {d2[0]:.3e})", flush=True)
+        assert max(d2[1], *(v for r in d2_clip for v in r)) <= 1, \
+            "parallel 2d: the sharded step disagrees"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+PARALLEL_CODEC_GROUP = 3
+PARALLEL_CODEC_QS = [(0.5, 0.5), (0.1, 0.9)]
+
+
+def run_parallel_codec(frame):
+    """[parallel codec]: the flagship codec with devices=["cuda:0",
+    "cuda:0"] (two workers, one replica) on the vox10 frame at block 512,
+    MAX_GROUP lowered to 3 for the phase: bytes, decode and compress_multi
+    equal to the sequential codec's; 19/3/3 launches a device pass."""
+    from upcc_tpu_torch.codec import codec as codec_mod
+    model = load_weights(UnifiedModel(FLAGSHIP_CONFIG), WEIGHTS)
+    seq = Codec(model, device="cuda")
+    seq.update()
+    par = Codec(model, devices=["cuda:0", "cuda:0"])
+    par.update()
+    saved = codec_mod.MAX_GROUP
+    codec_mod.MAX_GROUP = PARALLEL_CODEC_GROUP
+    try:
+        q, q2 = PARALLEL_CODEC_QS
+        t0 = time.time()
+        ref = seq.compress(frame, q, block_size=512)
+        ref2 = seq.compress(frame, q2, block_size=512)
+        rec_ref = seq.decompress(ref)
+        t_seq = time.time() - t0
+        n_enc = len(par._partition_blocks(frame, 512, 1.0)[0])
+        n_dec = len(codec_mod._chunk_decode_groups(
+            bitstream.read_container(ref)[0]))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        data = par.compress(frame, q, block_size=512)
+        rec = par.decompress(data)
+        torch.cuda.synchronize()
+        t_par = time.time() - t0
+        launches = codec_launches()
+        multi = par.compress_multi(frame, [q, q2], block_size=512)
+    finally:
+        codec_mod.MAX_GROUP = saved
+    want = {"tap_gemm": 8 * n_enc + 11 * n_dec, "topk_mask": 3 * n_dec,
+            "compact": 3 * n_dec}
+    print(f"[parallel codec] devices ['cuda:0', 'cuda:0'] (2 workers, "
+          f"{len(par._replicas)} replica), block 512, MAX_GROUP "
+          f"{PARALLEL_CODEC_GROUP}: {n_enc} encode and {n_dec} decode "
+          f"groups; compress + decompress {t_par:.2f} s (sequential codec, "
+          f"two q's and a decode: {t_seq:.2f} s); launches {launches} "
+          f"(19/3/3 a group: K1 8 an encode and 11 a decode pass); "
+          f"{len(data)} bytes", flush=True)
+    assert data == ref, "parallel codec: bytes differ from sequential"
+    assert np.array_equal(rec, rec_ref), "parallel codec: decode differs"
+    assert [bytes(m) for m in multi] == [ref, ref2], \
+        "parallel codec: compress_multi differs from independent compresses"
+    assert launches == want, (launches, want)
+    print("[parallel codec] bytes, decode and compress_multi at two q's "
+          "equal to the sequential codec's", flush=True)
+
+
+def run_parallel(smi, frame):
+    """Phases 12-15, each with its seconds."""
+    for name, fn in (("region train", lambda: run_region_train(smi)),
+                     ("parallel dp + 2d", lambda: run_parallel_train(smi)),
+                     ("parallel codec", lambda: run_parallel_codec(frame))):
+        t0 = time.time()
+        fn()
+        print(f"[{name}] phase seconds {time.time() - t0:.1f}", flush=True)
+
+
 # -- main ----------------------------------------------------------------------
 
 def main():
@@ -2003,6 +2619,15 @@ def main():
     # 2. kernels on edge cases
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if "--parallel" in sys.argv[1:]:
+        xyz, rgb = surface_cloud(np.random.default_rng(10), extent=1024,
+                                 n_target=760_000)
+        run_parallel(smi, np.concatenate([xyz.astype(np.float32), rgb], 1))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     check_tap_wgrad(gen)
     if "--train" in sys.argv[1:]:
         run_train(smi)
@@ -2150,6 +2775,9 @@ def main():
     train_rows, train_launches = run_train(smi)
     rows["tap_wgrad"] = train_rows["tap_wgrad"]
     launches["tap_wgrad"] = train_launches["tap_wgrad"]
+
+    # 12-15. region-candidate training and the multi-device paths
+    run_parallel(smi, frame)
 
     out = []
     for name, (src, replaces) in REPLACES.items():

@@ -159,7 +159,7 @@ def test_threaded_group_map_matches_sequential(tc, frame):
 
 
 def test_worker_exception_reaches_the_caller(tc, frame):
-    def boom(_):
+    def boom(*_):
         raise KeyError("worker failed")
     with pytest.raises(KeyError):
         tc._map_groups(boom, [1, 2, 3])

@@ -14,16 +14,19 @@ emit context bins, the host codes each candidate's true bit, and geometry
 decodes exactly.  compress_multi shares the q-independent half of the
 encode between operating points; compress_stream / decompress_stream keep
 several frames in flight on worker threads; a frame's groups run on two
-worker threads.  All of them give the bytes of the sequential calls.
+worker threads, or with ``devices=[...]`` round-robin over those devices,
+one worker thread per listed entry and one model replica per distinct
+device (``parallel/block_parallel.py``).  All of them give the bytes of
+the sequential calls.
 refit_colors attaches the signaled color layers (codec/color_affine.py,
 codec/color_resid.py) that decompress applies.
 
 Static capacities are the JAX package's (powers of two, the same group
-constants), so the two packages truncate identically.  One device only:
-dispatching groups over several GPUs is not ported.
+constants), so the two packages truncate identically.
 """
 
 import contextlib
+import copy
 import math
 import time
 from collections import deque
@@ -41,6 +44,7 @@ from ..models.layers import _TapConv
 from ..ops import coords as C
 from ..ops import family as F
 from ..ops.sparse import SparseTensor, voxelize_host_np
+from ..parallel.block_parallel import parallel_map_blocks, shard_points_by_block
 from . import bitstream, color_affine, color_resid, refine
 
 MAX_GROUP = 63  # batch bits hold 6 bits; batch index 63 is reserved
@@ -100,13 +104,30 @@ def _z_hs_caps(n_s16, n_z):
     return z_caps, hs_caps
 
 
-class Codec:
-    """``Codec(model, device="cuda")``; call ``update()`` once, then
-    ``compress(pointcloud, q, path=None, block_size=1024)`` and
-    ``decompress(data)``."""
+def _device_key(device):
+    """torch.device with the current CUDA index filled in, so that "cuda"
+    and "cuda:0" name one device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
-    def __init__(self, model, device="cuda"):
-        self.device = resolve_device(device)
+
+class Codec:
+    """``Codec(model, device="cuda", devices=None)``; call ``update()``
+    once, then ``compress(pointcloud, q, path=None, block_size=1024)`` and
+    ``decompress(data)``.
+
+    devices: a list of devices to dispatch groups of blocks over,
+    round-robin, one worker thread per entry (entries may repeat); the
+    codec's own device is then the first, and ``update()`` gives every
+    other distinct device a replica of the model.  debug and profile run
+    the groups in order on the first device."""
+
+    def __init__(self, model, device="cuda", devices=None):
+        self.devices = [_device_key(d) for d in devices] if devices else None
+        self.device = self.devices[0] if devices else resolve_device(device)
+        self._replicas = {}
         if self.device.type == "cuda":
             # plain f32 products stay full f32 (the kernels use bf16 operands
             # with f32 accumulation explicitly)
@@ -156,6 +177,21 @@ class Codec:
             "z": build_cdf_tables(bn.numpy_params(), bn.channels),
             "y": gaussian.build_cdf_tables(),
         }
+        self._replicas = {self.device: self}
+        for dev in self.devices or ():
+            if dev not in self._replicas:
+                self._replicas[dev] = self._replica(dev)
+
+    def _replica(self, device):
+        """A codec on ``device`` with its own copy of the model, prepared
+        there, for the block-parallel workers (which run with debug and
+        profile off)."""
+        rep = copy.copy(self)
+        rep.device, rep.devices = device, None
+        rep.debug = rep.profile = False
+        rep.model = copy.deepcopy(self.model).to(device).eval()
+        rep.update()
+        return rep
 
     # -- encode --------------------------------------------------------------
 
@@ -184,8 +220,8 @@ class Codec:
                                                     scaling_factor)
         qv = np.asarray(q, np.float32).reshape(1, 2)
         results = self._map_groups(
-            lambda item: self._encode_at_q(
-                self._encode_shared(item[0], item[1], levels), qv, geom),
+            lambda c, item: c._encode_at_q(
+                c._encode_shared(item[0], item[1], levels), qv, geom),
             groups)
         blocks = [b for r in results for b in r]
         return bitstream.write_container(path, blocks, scaling_factor)
@@ -203,14 +239,16 @@ class Codec:
         self._check_encode(block_size, geom)
         groups, levels = self._partition_blocks(pointcloud, block_size,
                                                 scaling_factor)
+        # group i runs on the same device (round-robin) in every pass, so
+        # each q pass finds its group's shared state there
         shareds = self._map_groups(
-            lambda item: self._encode_shared(item[0], item[1], levels),
+            lambda c, item: c._encode_shared(item[0], item[1], levels),
             groups)
         out = []
         for q in qs:
             qv = np.asarray(q, np.float32).reshape(1, 2)
             results = self._map_groups(
-                lambda sh: self._encode_at_q(sh, qv, geom), shareds)
+                lambda c, sh: c._encode_at_q(sh, qv, geom), shareds)
             blocks = [b for r in results for b in r]
             out.append(bitstream.write_container(None, blocks,
                                                  scaling_factor))
@@ -227,16 +265,20 @@ class Codec:
             return fn(*args)
 
     def _map_groups(self, fn, items):
-        """Two worker threads overlap one group's host entropy coding with
-        another's device passes.  Results keep input order, so containers
-        stay byte-identical to the sequential path.  debug and profile
-        recording need a deterministic stage order and force it."""
-        if len(items) > 1 and not (self.debug or self.profile):
-            with ThreadPoolExecutor(max_workers=2) as ex:
-                futs = [ex.submit(self._in_worker, fn, item)
-                        for item in items]
-                return [f.result() for f in futs]
-        return [fn(item) for item in items]
+        """``[fn(codec, item) for item in items]``, ``codec`` the codec of
+        the item's device.  Groups go round-robin over ``devices``
+        (``parallel_map_blocks``), one worker thread per entry; without
+        ``devices``, two workers on this codec overlap one group's host
+        entropy coding with another's device passes.  Results keep input
+        order, so containers stay byte-identical to the sequential path.
+        debug and profile recording need a deterministic stage order and
+        force it."""
+        if len(items) <= 1 or self.debug or self.profile:
+            return [fn(self, item) for item in items]
+        return parallel_map_blocks(
+            lambda item, dev: self._replicas[dev]._in_worker(
+                fn, self._replicas[dev], item),
+            items, self.devices or [self.device] * 2)
 
     def _stream(self, items, fn, depth):
         """Bounded-depth pipeline: up to ``depth`` frames in flight on
@@ -337,12 +379,8 @@ class Codec:
         xyz = xyz.astype(np.int32)
         rgb = pts[:, 3:6].astype(np.float32)
 
-        mins = xyz.min(axis=0)
-        bidx = (xyz - mins) // block_size
-        order = np.lexsort((bidx[:, 2], bidx[:, 1], bidx[:, 0]))
-        xyz, rgb, bidx = xyz[order], rgb[order], bidx[order]
-        change = np.any(np.diff(bidx, axis=0) != 0, axis=1)
-        bounds = np.concatenate([[0], np.where(change)[0] + 1, [len(xyz)]])
+        order, bounds, mins = shard_points_by_block(xyz, block_size)
+        xyz, rgb = xyz[order], rgb[order]
 
         levels = max(1, int(math.ceil(math.log2(max(block_size // 8, 2)))))
         groups = []
@@ -528,7 +566,7 @@ class Codec:
         if self.tables is None:
             raise RuntimeError("call update() first")
         blocks, scaling_factor = bitstream.read_container(data)
-        outs = self._map_groups(self._decompress_group,
+        outs = self._map_groups(lambda c, blks: c._decompress_group(blks),
                                 _chunk_decode_groups(blocks))
         x = np.concatenate(outs, axis=0)
         if scaling_factor != 1.0:

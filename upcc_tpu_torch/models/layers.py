@@ -122,7 +122,9 @@ class FamilyTransposeUp(_TapConv):
 
     kind = "transpose"
 
-    def forward(self, nbr_self, feats, valid, grand=False):
+    def forward(self, nbr_self, feats, valid, grand=False, self_map=True):
+        """``self_map=False``: ``nbr_self`` is a cross map whose rows are
+        another key set than the input's (region mode)."""
         if grand:
             # nbr_self = G self map, feats = [G, 8, cin] child brick of G,
             # valid = [G, 64] candidate mask; non-candidate slots come out
@@ -134,7 +136,7 @@ class FamilyTransposeUp(_TapConv):
             return out * valid[..., None].to(out.dtype)
         w = self.w if self.kernel_size == 2 else self.taps()
         out = F.family_transpose_up(nbr_self, feats, valid, w,
-                                    self.kernel_size)
+                                    self.kernel_size, self_map=self_map)
         if self.b is not None:
             # output rows follow the nbr map's rows; kernel-2 transposes
             # pass no map — rows are the input set

@@ -17,8 +17,9 @@ diagnostics.
 
 The same forwards train: with gradients on, every tap conv runs through
 ``ops.family.TapGemm`` and the prunes through ``compact``'s gradient; the
-top-k masks carry none.  Region mode does not train in the port yet
-(its transposes run over cross maps; it raises with gradients on).
+top-k masks carry none.  Region mode's transposes run over cross maps
+(rows of the dilated set, sources of the parent set), whose dgrad goes
+through ``ops.family.transposed_map``.
 """
 
 import torch
@@ -205,9 +206,6 @@ class SparseSynthesisTransform(nn.Module):
         emit_last_logits stops at level num_levels-1 right after its
         occupancy logits (no prune, no color head).
         Returns (x_hat, candidates, logits_list)."""
-        if self.region_candidates and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "region-candidate g_s does not train in the port yet")
         base_cap = y.capacity
         dev = y.keys.device
         caps = list(prune_caps) if prune_caps is not None else \
@@ -296,7 +294,7 @@ class SparseSynthesisTransform(nn.Module):
                 cross = F.cross_neighbors(d_keys, parent_keys)
                 child_keys = upsample_children_keys(d_keys)
                 cf = F.child_family(d_keys, nbr=d_nbr)
-                cfeats = transpose(cross, x.feats, x.valid)
+                cfeats = transpose(cross, x.feats, x.valid, self_map=False)
                 cover = cross[1].to(torch.float32) @ torch.as_tensor(
                     F.transpose_cover_table(), dtype=torch.float32,
                     device=dev)

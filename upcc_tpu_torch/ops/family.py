@@ -881,10 +881,11 @@ def family_conv(fm_in: FamilyMap, in_feats, in_valid, weights, kernel_size,
 
 
 def family_transpose_up(fm_parent_nbr, in_feats, in_valid, weights,
-                        kernel_size, compute_dtype=None):
+                        kernel_size, compute_dtype=None, self_map=True):
     """Generative transposed conv stride 2 (kernel 2 or 5) onto the full
-    child expansion of the input set.  Returns f32 child features
-    [8*N, Cout] aligned with upsample_children_keys(in_keys)."""
+    child expansion of the map's rows (the input set for a self map).
+    Returns f32 child features [8*rows, Cout] aligned with
+    upsample_children_keys(row keys)."""
     compute_dtype = compute_dtype or default_compute_dtype(in_feats.device)
     n = in_feats.shape[0]
     x = (in_feats * in_valid[:, None].to(in_feats.dtype)).to(compute_dtype)
@@ -899,7 +900,7 @@ def family_transpose_up(fm_parent_nbr, in_feats, in_valid, weights,
     nbr_idx, nbr_ok = fm_parent_nbr
     plan = _as_plan(weights, "transpose", kernel_size, compute_dtype)
     n_out = nbr_idx.shape[0]
-    acc = _gemm(x, nbr_idx, nbr_ok, plan)
+    acc = _gemm(x, nbr_idx, nbr_ok, plan, self_map)
     return acc.reshape(8 * n_out, plan.k_out // 8)
 
 

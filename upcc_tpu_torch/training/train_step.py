@@ -33,19 +33,30 @@ def param_groups(model):
     return main, aux
 
 
-def make_optimizer(model, config):
+def make_optimizer(model, config, tensor_of=None):
+    """The two Adam groups; tensor_of: parameter -> the tensor the
+    optimizer updates in its place (a rank's slice in a sharded step)."""
     main, aux = param_groups(model)
+    if tensor_of is not None:
+        main, aux = [tensor_of(p) for p in main], [tensor_of(p) for p in aux]
     return torch.optim.Adam([
         {"params": main, "lr": config.get("model_learning_rate", 1e-4)},
         {"params": aux, "lr": config.get("bottleneck_learning_rate", 1e-3)}])
 
 
-def clip_by_global_norm(params, clip):
-    """optax's rule, in place on the gradients; returns the norm."""
+def sum_of_squares(grads):
+    return sum(torch.sum(g.float() * g.float()) for g in grads)
+
+
+def clip_by_global_norm(params, clip, norm=None):
+    """optax's rule, in place on the gradients; returns the norm.  norm:
+    the global norm where the gradients here are part of it (a sharded
+    step), else computed from them."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    if norm is None:
+        norm = torch.sqrt(sum_of_squares(grads))
     keep = norm < clip
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * clip))
@@ -80,10 +91,20 @@ class TrainStep:
         self.optimizer.zero_grad(set_to_none=True)
         total, parts = self.loss(x, q, lam, root_nbrs, generator)
         total.backward()
+        return self.update({"loss": total.detach(),
+                            **{k: v.detach() for k, v in parts.items()}})
+
+    def clip_gradients(self, params):
+        """Clip ``params``' gradients in place by their global norm;
+        returns the norm."""
+        return clip_by_global_norm(params, self.clip)
+
+    def update(self, metrics):
+        """Clip the main group, set its rate, step both Adam groups on the
+        gradients in place; returns ``metrics``."""
         main_group, _ = self.optimizer.param_groups
-        clip_by_global_norm(main_group["params"], self.clip)
+        self.clip_gradients(main_group["params"])
         main_group["lr"] = self.schedule(self.step)
         self.optimizer.step()
         self.step += 1
-        return {"loss": total.detach(),
-                **{k: v.detach() for k, v in parts.items()}}
+        return metrics

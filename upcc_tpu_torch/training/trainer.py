@@ -1,6 +1,5 @@
-"""Training driver: config -> folders -> train/val loop -> checkpoints, on
-one device (the JAX package's ``training/trainer.py`` without its data
-parallelism).
+"""Training driver: config -> folders -> train/val loop -> checkpoints (the
+JAX package's ``training/trainer.py``).
 
   * results/<experiment>/{config.yaml, ckpts/, weights.msgpack,
     weights_bf16.msgpack (+ .meta.json sidecars), val.csv}
@@ -11,6 +10,15 @@ parallelism).
     to the snapshot's step)
   * size-bucketed greedy batching; each step voxelizes on the host and
     builds the root neighbour maps there
+  * data parallelism under a process group (``data_parallel``: "auto",
+    the default, uses every rank of a world of more than one; False trains
+    each rank alone): each rank runs one batch of a group of world-size
+    batches at the group's largest capacity and voxelizes only its own,
+    the gradients are averaged before the update
+    (``parallel/data_parallel.py``); a trailing group of fewer batches runs
+    on every rank, each batch in turn, still averaged, so the replicas stay
+    bit-identical.  Only the primary rank writes checkpoints, exports,
+    val.csv and renders, and validates
   * every ``val_every`` epochs, validation through the real codec
     (compress -> bytes -> decompress) at the four corner qualities into
     val.csv
@@ -23,6 +31,7 @@ builds one): the GDN and MLP products stay f32 in every step.
 
 import copy
 import csv
+import itertools
 import json
 import os
 import time
@@ -31,11 +40,14 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..data.dataset import StaticDataset, collate_cubes
 from ..data.q_func import QFunc
 from ..data.transform import build_transforms
 from ..models.unified import UnifiedModel, host_root_maps
 from ..ops.sparse import SparseTensor, voxelize_host_np
+from ..parallel import data_parallel as dp
+from ..parallel.multihost import barrier, is_primary, world
 from ..weights import load_weights, save_flax_msgpack
 from .loss import Loss
 from .train_step import TrainStep
@@ -55,7 +67,7 @@ class Training:
         config_text: that YAML's text, copied to the results directory
         (else the dict is written there as JSON)."""
         cfg = self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -64,9 +76,11 @@ class Training:
                                         self.experiment)
         self.ckpt_dir = os.path.join(self.results_dir, "ckpts")
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        with open(os.path.join(self.results_dir, "config.yaml"), "w") as f:
-            f.write(config_text if config_text is not None
-                    else json.dumps(cfg, indent=1))
+        if is_primary():
+            with open(os.path.join(self.results_dir, "config.yaml"),
+                      "w") as f:
+                f.write(config_text if config_text is not None
+                        else json.dumps(cfg, indent=1))
         self.batch_size = cfg.get("batch_size", 8)
         self.capacity = capacity
         self.epochs = cfg.get("epochs", 300)
@@ -101,14 +115,29 @@ class Training:
             print(f"auto capacity: {self.capacity}")
         self.steps_per_epoch = max(1, (len(self.train_ds) if self.train_ds
                                        else 1000) // self.batch_size)
-        self.step_fn = TrainStep(self.model, self.loss_obj, cfg,
-                                 self.steps_per_epoch)
+        dp_cfg = cfg.get("data_parallel", "auto")
+        n_ranks = world()[1]
+        self.n_dp = n_ranks if dp_cfg in ("auto", True) and n_ranks > 1 \
+            else 1
+        step_cls = TrainStep
+        if self.n_dp > 1:
+            self.dp_mesh = dp.make_mesh(self.n_dp)
+            step_cls = dp.DataParallelStep
+            if is_primary():
+                print(f"data-parallel training over {self.n_dp} ranks "
+                      f"(global batch {self.n_dp * self.batch_size} cubes)")
+        self.step_fn = step_cls(self.model, self.loss_obj, cfg,
+                                self.steps_per_epoch)
         self.start_epoch = 0
         self._maybe_resume()
+        if self.n_dp > 1:
+            dp.broadcast_state(self.model)
 
     # ---- checkpointing --------------------------------------------------
 
     def save_checkpoint(self, epoch):
+        if not is_primary():
+            return
         step = self.step_fn.step
         torch.save({"model": self.model.state_dict(),
                     "optimizer": self.step_fn.optimizer.state_dict(),
@@ -212,11 +241,12 @@ class Training:
                             if total <= c <= self.capacity), self.capacity)
             yield collate_cubes(items, cap, rng)
 
-    def batch_tensors(self, batch):
+    def batch_tensors(self, batch, capacity=None):
         """(x, root maps) of a collated batch on the training device:
-        voxelized once on the host, at the batch's own capacity."""
+        voxelized once on the host, at ``capacity`` (default the batch's
+        own)."""
         b, x, c = batch
-        keys, feats = voxelize_host_np(b, x, c, len(b))
+        keys, feats = voxelize_host_np(b, x, c, capacity or len(b))
         st = SparseTensor(keys=torch.from_numpy(keys).to(self.device),
                           feats=torch.from_numpy(feats).to(self.device))
         return st, host_root_maps(keys, self.config["model"], self.device)
@@ -227,17 +257,55 @@ class Training:
         return self.step_fn(st, q.to(self.device), lam.to(self.device), root,
                             gen_noise)
 
-    def train_epoch(self, epoch):
-        rng = np.random.default_rng(epoch)
+    def _seq_steps(self, epoch, batches):
+        """The epoch's steps on one device; yields each step's metrics."""
         gen_q = torch.Generator().manual_seed(epoch)
         gen_noise = torch.Generator(device=self.device).manual_seed(epoch)
+        for step, batch in enumerate(batches):
+            if self.max_steps_per_epoch and step >= self.max_steps_per_epoch:
+                return
+            yield self._seq_step(batch, gen_q, gen_noise)
+
+    def _shard_step(self, batch, capacity, q, lam, epoch, step, shard):
+        """One data-parallel step on ``batch`` with the draws of group
+        ``step``'s shard ``shard``."""
+        st, root = self.batch_tensors(batch, capacity)
+        gen = dp.noise_generator(self.device, epoch, step, shard)
+        return self.step_fn(st, q.to(self.device), lam.to(self.device),
+                            root, gen)
+
+    def _dp_steps(self, epoch, batches):
+        """The epoch's data-parallel steps: groups of n_dp batches (every
+        rank collates all of them, so the transforms' draws stay in step,
+        and voxelizes its own); yields each step's metrics."""
+        lo, _ = dp.local_dp_rows(self.dp_mesh)
+        for step in itertools.count():
+            if self.max_steps_per_epoch and step >= self.max_steps_per_epoch:
+                return
+            group = list(itertools.islice(batches, self.n_dp))
+            if not group:
+                return
+            q, lam = dp.group_draws(self.q_func, len(group), self.batch_size,
+                                    epoch, step)
+            if len(group) == self.n_dp:
+                cap = max(len(b) for b, _, _ in group)
+                yield self._shard_step(group[lo], cap, q[lo], lam[lo], epoch,
+                                       step, lo)
+                continue
+            # trailing remainder: every rank runs each batch in turn
+            for i, batch in enumerate(group):
+                yield self._shard_step(batch, None, q[i], lam[i], epoch, step,
+                                       i)
+
+    def train_epoch(self, epoch):
+        rng = np.random.default_rng(epoch)
         self.model.train()
         losses, pending = [], deque()
         t0 = time.time()
-        for step, batch in enumerate(self._batches(rng)):
-            if self.max_steps_per_epoch and step >= self.max_steps_per_epoch:
-                break
-            pending.append(self._seq_step(batch, gen_q, gen_noise))
+        steps = (self._dp_steps if self.n_dp > 1 else self._seq_steps)(
+            epoch, self._batches(rng))
+        for metrics in steps:
+            pending.append(metrics)
             if len(pending) >= self._PIPELINE_DEPTH:
                 losses.append(float(pending.popleft()["loss"]))
         while pending:
@@ -247,7 +315,10 @@ class Training:
 
     def val_epoch(self, epoch):
         """Full-codec validation at the four corner qualities (a copy of
-        the model; the training model is left as it is)."""
+        the model; the training model is left as it is), on the primary
+        rank only."""
+        if not is_primary():
+            return []
         from ..codec.codec import Codec
         from ..eval.metrics import pc_metrics
         codec = Codec(copy.deepcopy(self.model), device=self.device)
@@ -295,3 +366,6 @@ class Training:
                     (epoch + 1) % self.val_every == 0:
                 self.val_epoch(epoch)
             self.save_checkpoint(epoch)
+            # the other ranks leave the epoch once its checkpoint exists,
+            # so a resume on any rank reads the same one
+            barrier()
