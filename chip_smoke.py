@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels  # build + kernel checks only
     python3 chip_smoke.py --train    # build + K1w checks + phase 11 only
     python3 chip_smoke.py --parallel # build + phases 12-15 only
+    python3 chip_smoke.py --oracle   # build + phases 16-17 only
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi); build the CUDA kernels
@@ -126,7 +127,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      "cuda:0"] on the vox10 frame at block 512 with MAX_GROUP 3 (restored
      after): bytes, decode and compress_multi at two q's equal to the
      sequential codec's, launches 19/3/3 a group (K1 8 an encode and 11 a
-     decode pass).  Phases 12-15 print their seconds.
+     decode pass).  Phases 12-15 print their seconds;
+ 16. ``[oracle]``: the geometry-attribution driver
+     (upcc_tpu_torch.diag_geometry) on the flagship uncut with the
+     committed weights, on the 8 largest 128^3 cubes of [train]'s frame
+     that fit 0.9 x 131,072 points (five do), batched at capacity 262,144
+     (ORACLE_BATCH_CAPACITY: at 131,072 g_a's stride-2 cap cuts this
+     frame's batch), q = 1: with g_s's oracle at levels
+     (), (0,), (0, 1), (0, 1, 2), once at the flagship's prune slack and
+     once at ORACLE_SLACK (past every GT count, so the tie-fill keeps -1
+     candidates); gated: the full oracle reconstructs the GT keys, every
+     configuration decodes sum k[2] points, K1/K2/K3 launch as often as in
+     the non-oracle forward, and every K2 call at an oracle level (all
+     logits +-1, the kept set decided by the tie-fill by position) equals
+     topk_mask_plain bit for bit; printed: forward ms (median of
+     ORACLE_TIMED), peak memory, each level's ranking precision and D1 per
+     configuration;
+ 17. ``[twins]``: the four native host libraries (rANS, octree, occupancy,
+     voxelize) loaded; on the JAX fixture's frame (6,000 points, q = (0.5,
+     0.5), block 128) in geom="topk" and "coded", with every library
+     forced off the containers are byte-identical and decode to the same
+     points through the Python twins; each coder's seconds native and
+     twin.  Phases 16-17 print their seconds.
 The last three lines are the nvidia-smi line, the kernels JSON line and
 the result line {"ok": true, "device": {...}}.
 
@@ -2594,6 +2616,224 @@ def run_parallel(smi, frame):
         print(f"[{name}] phase seconds {time.time() - t0:.1f}", flush=True)
 
 
+# -- phases 16-17: the oracle hooks and the host-coder twins ------------------
+
+ORACLE_CUBES = 8
+ORACLE_CAPACITY = 131_072  # the cubes that fit 0.9 x this go in
+# the forward's capacity: g_a keeps 0.5, 0.25, 0.125 x capacity points at
+# strides 2, 4, 8, and this frame's scan-like shells keep 0.74 of their
+# points at stride 2 (86,887 of the 117,963 above), so at 131,072 g_a cuts
+# the batch's tail cubes and neither the GT nor sum k[2] can be reached
+ORACLE_BATCH_CAPACITY = 262_144
+ORACLE_Q = 1.0
+# a slack past every GT count, so the oracle levels' tie-fill reaches into
+# the -1 candidates
+ORACLE_SLACK = (1.5, 1.25)
+ORACLE_TIMED = 3
+TWIN_SEED, TWIN_EXTENT, TWIN_POINTS = 2024, 128, 6000  # the JAX fixture's
+TWIN_Q, TWIN_BLOCK = (0.5, 0.5), 128
+
+
+def oracle_k2_calls(record, levels):
+    """Every recorded K2 call of an oracle level (the forward's calls are
+    its levels 0, 1, 2 in order) held bit for bit against topk_mask_plain
+    on the same +-1 input; per oracle level (kept, +1 candidates)."""
+    calls = record.get("topk_mask", [])
+    assert len(calls) == 3, f"{len(calls)} K2 calls in an oracle forward"
+    out = []
+    for lvl in levels:
+        keys, logits, k32 = calls[lvl]
+        assert bool(((logits == 1) | (logits == -1)).all()), \
+            f"level {lvl} logits are not the oracle's +-1"
+        ref = topk_mask_plain(keys, logits, k32)
+        got = topk_mask(SparseTensor(keys, logits[:, None]), logits, k32)
+        assert torch.equal(got, ref), \
+            f"K2 at oracle level {lvl} differs from topk_mask_plain"
+        out.append((int(got.sum()),
+                    int(((logits == 1) & (keys != C.SENTINEL)).sum())))
+    return out
+
+
+def run_oracle(smi):
+    """Phase 16: the geometry-attribution driver's forward on the card
+    (the flagship uncut, the committed weights, train frame 0's fullest
+    128^3 cubes), gated: the full oracle reconstructs the GT keys, every
+    configuration decodes sum k[2] points, K1/K2/K3 launch as often as in
+    the non-oracle forward, and every K2 call at an oracle level equals
+    its plain version bit for bit, at the flagship's slack and at
+    ORACLE_SLACK."""
+    from upcc_tpu_torch import diag_geometry as DG
+    t0 = time.time()
+    xyz, rgb = train_frame()
+    items = DG.select_cubes(xyz, rgb, ORACLE_CUBES, ORACLE_CAPACITY)
+    model = load_weights(UnifiedModel(dict(FLAGSHIP_CONFIG,
+                                           max_batch=ORACLE_CUBES)),
+                         WEIGHTS).to("cuda").eval()
+    st, rn, gt = DG.batch_inputs(items, ORACLE_BATCH_CAPACITY, model.config,
+                                 "cuda")
+    q = torch.full((len(items), 2), ORACLE_Q, device="cuda")
+    pyramid, lv = [], gt
+    for _ in range(3):
+        lv = np.unique(((lv & C.KEY_MASK) >> 3) | (lv & ~C.KEY_MASK))
+        pyramid.append(len(lv))
+    caps = [int(f * ORACLE_BATCH_CAPACITY) for f in model.g_a.cap_factors]
+    print(f"[oracle] {len(items)} cubes of {DG.CUBE}^3 that fit 0.9 x "
+          f"{ORACLE_CAPACITY}: {len(gt)} points at capacity "
+          f"{ORACLE_BATCH_CAPACITY}, q = {ORACLE_Q} (cube sizes "
+          f"{[len(c[0]) for c in items]}; points at strides 2, 4, 8 "
+          f"{pyramid} against g_a's caps {caps}); set-up "
+          f"{time.time() - t0:.1f} s", flush=True)
+    assert all(n <= c for n, c in zip(pyramid, caps)), "g_a cuts the batch"
+    flagship_slack = model.g_s.prune_slack
+    try:
+        for slack in (flagship_slack, ORACLE_SLACK):
+            model.g_s.prune_slack = slack
+            DG.oracle_forward(model, st, q, rn, ())  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = None
+            reached = False
+            for levels in DG.ORACLE_CONFIGS:
+                times = []
+                for _ in range(ORACLE_TIMED):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    DG.oracle_forward(model, st, q, rn, levels)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t1) * 1e3)
+                kernels.reset_launches()
+                kernels.RECORD = {}
+                try:
+                    out = DG.oracle_forward(model, st, q, rn, levels)
+                    torch.cuda.synchronize()
+                    record = kernels.RECORD
+                finally:
+                    kernels.RECORD = None
+                launches = {n: kernels.LAUNCHES[n] for n in CODEC_KERNELS}
+                if base is None:
+                    base = launches
+                assert launches == base, \
+                    f"oracle {levels}: launches {launches} != {base}"
+                pk = out["prediction"].keys
+                pk = pk[pk != C.SENTINEL].cpu().numpy()
+                k2 = int(out["k"][2].sum())
+                assert len(pk) == k2, f"oracle {levels}: {len(pk)} != {k2}"
+                if levels == (0, 1, 2):
+                    assert np.array_equal(np.sort(pk), gt), \
+                        "the full oracle did not reconstruct the GT keys"
+                fills = oracle_k2_calls(record, levels)
+                reached |= any(kept > pos for kept, pos in fills)
+                del out, record
+                print(f"[oracle] slack {tuple(slack)} levels {levels}: "
+                      f"forward ms median {float(np.median(times)):.2f} "
+                      f"({', '.join(f'{t:.2f}' for t in times)}); launches "
+                      f"{launches}; decoded {len(pk)} = sum k[2]; K2 at "
+                      f"oracle levels bit-equal to plain, (kept, +1 "
+                      f"candidates) {fills}", flush=True)
+            print(f"[oracle] slack {tuple(slack)}: max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+                  flush=True)
+            if slack == ORACLE_SLACK:
+                assert reached, "the slack never filled into the -1 ties"
+    finally:
+        model.g_s.prune_slack = flagship_slack
+
+    res = DG.attribute(model, items, ORACLE_BATCH_CAPACITY, ORACLE_Q, "cuda")
+    for lvl, r in enumerate(res["levels"]):
+        print(f"[oracle] level {lvl}: ranking precision "
+              f"{r['precision']:.4f} (candidates {r['candidates']}, k "
+              f"{r['k']})", flush=True)
+    assert res["configs"][(0, 1, 2)]["equals_gt"]
+    for levels, r in res["configs"].items():
+        assert r["decoded"] == r["k2"]
+        print(f"[oracle] oracle {str(levels):10s}: D1 {r['psnr']:.2f} dB "
+              f"(mse {r['mse']:.4f}, {r['decoded']} points) | {smi}",
+              flush=True)
+    del model, st, rn
+    torch.cuda.empty_cache()
+
+
+def run_twins(codec):
+    """Phase 17: the four native host libraries loaded, and with each
+    forced off (its Python or numpy twin instead) the containers of the
+    JAX fixture's frame byte-identical in both geometry modes and decoded
+    to the same points; each coder's seconds native and twin."""
+    import threading
+
+    from upcc_tpu_torch.codec import codec as codec_mod
+    from upcc_tpu_torch.coding import occ, octree, rans
+    libs = [(rans, "_lib", rans._load), (octree, "_lib", octree._load),
+            (occ, "_lib", occ._load),
+            (sparse, "_vox_lib", sparse._load_voxelize)]
+    for mod, name, load in libs:
+        assert load(), f"{mod.__name__}: the native library did not load"
+    entries = {"rans": (rans, ("encode_with_indexes", "decode_with_indexes")),
+               "octree": (octree, ("encode", "decode")),
+               "occ": (occ, ("encode", "decode")),
+               "voxelize": (codec_mod, ("voxelize_host_np",))}
+    seconds = {}
+    lock = threading.Lock()
+
+    def timed(coder, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    seconds[coder] += time.perf_counter() - t0
+        return call
+
+    xyz, rgb = surface_cloud(np.random.default_rng(TWIN_SEED),
+                             extent=TWIN_EXTENT, n_target=TWIN_POINTS)
+    frame = np.concatenate([xyz.astype(np.float32), rgb], 1)
+    saved = [(mod, fn, getattr(mod, fn)) for mod, fns in entries.values()
+             for fn in fns]
+    try:
+        for coder, (mod, fns) in entries.items():
+            for fn in fns:
+                setattr(mod, fn, timed(coder, getattr(mod, fn)))
+        for geom in ("topk", "coded"):
+            runs = {}
+            for side in ("native", "twin"):
+                seconds.update({c: 0.0 for c in entries})
+                if side == "twin":
+                    for mod, name, _ in libs:
+                        setattr(mod, name, False)
+                try:
+                    t0 = time.perf_counter()
+                    data = codec.compress(frame, TWIN_Q,
+                                          block_size=TWIN_BLOCK, geom=geom)
+                    t_enc = time.perf_counter() - t0
+                    ref = runs["native"][0] if side == "twin" else data
+                    t0 = time.perf_counter()
+                    rec = codec.decompress(ref)
+                    t_dec = time.perf_counter() - t0
+                finally:
+                    for mod, name, load in libs:
+                        setattr(mod, name, None)
+                        load()
+                runs[side] = (data, rec, t_enc, t_dec, dict(seconds))
+            (data, rec, *_), (tdata, trec, *_) = runs["native"], runs["twin"]
+            assert tdata == data, f"{geom}: twins wrote other bytes"
+            assert np.array_equal(trec, rec), \
+                f"{geom}: the twins decoded other points"
+            print(f"[twins] {geom}: {len(frame)} points, {len(data)} B "
+                  f"byte-identical, decoded {len(rec)} points identical; "
+                  f"compress / decompress s native "
+                  f"{runs['native'][2]:.3f} / {runs['native'][3]:.3f}, twins "
+                  f"{runs['twin'][2]:.3f} / {runs['twin'][3]:.3f}", flush=True)
+            for coder in entries:
+                print(f"[twins] {geom} {coder}: s native "
+                      f"{runs['native'][4][coder]:.4f}, twin "
+                      f"{runs['twin'][4][coder]:.4f}", flush=True)
+    finally:
+        for mod, fn, f in saved:
+            setattr(mod, fn, f)
+    for mod, name, load in libs:
+        assert load(), f"{mod.__name__}: the native library did not reload"
+
+
 # -- main ----------------------------------------------------------------------
 
 def main():
@@ -2619,6 +2859,17 @@ def main():
     # 2. kernels on edge cases
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if "--oracle" in sys.argv[1:]:
+        run_oracle(smi)
+        codec = Codec(load_weights(UnifiedModel(FLAGSHIP_CONFIG), WEIGHTS),
+                      device="cuda")
+        codec.update()
+        run_twins(codec)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--parallel" in sys.argv[1:]:
         xyz, rgb = surface_cloud(np.random.default_rng(10), extent=1024,
                                  n_target=760_000)
@@ -2778,6 +3029,13 @@ def main():
 
     # 12-15. region-candidate training and the multi-device paths
     run_parallel(smi, frame)
+
+    # 16-17. the oracle hooks on the card, the host-coder twins
+    for name, fn in (("oracle", lambda: run_oracle(smi)),
+                     ("twins", lambda: run_twins(codec))):
+        t0 = time.time()
+        fn()
+        print(f"[{name}] phase seconds {time.time() - t0:.1f}", flush=True)
 
     out = []
     for name, (src, replaces) in REPLACES.items():

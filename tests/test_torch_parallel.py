@@ -178,7 +178,7 @@ def test_data_parallel_two_ranks_matches_jax(shards, jax_ref, tmp_path):
     mean gradient; both replicas hold the same bits."""
     multihost.spawn(ranks.dp_rank, 2, (CFG, LOSS, RATES, jax_ref["init"],
                                        shards, jax_ref["noise"],
-                                       str(tmp_path)))
+                                       str(tmp_path)), device="cpu")
     out = ranks.load(str(tmp_path), 2)
     assert out[0]["hash"] == out[1]["hash"]
     for o in out:
@@ -197,7 +197,7 @@ def test_sharded_2x2_matches_jax_and_halves_sharded_leaves(shards, jax_ref,
     multihost.spawn(ranks.sharded_rank, 4, (CFG, LOSS, RATES,
                                             jax_ref["init"], shards,
                                             jax_ref["noise"], 2,
-                                            str(tmp_path)))
+                                            str(tmp_path)), device="cpu")
     out = ranks.load(str(tmp_path), 4)
     assert len({o["hash"] for o in out}) == 1
     for o in out:

@@ -58,7 +58,7 @@ def test_sharded_step_on_a_1x1_mesh_matches_reference_step(shards, tmp_path):
         mp.undo()
     multihost.spawn(ranks.sharded_rank, 1, (CFG, LOSS, RATES, init,
                                             shards[:1], dict(noise.arrays),
-                                            1, str(tmp_path)))
+                                            1, str(tmp_path)), device="cpu")
     got = ranks.load(str(tmp_path), 1)[0]
     np.testing.assert_allclose(got["metrics"]["loss"], float(metrics["loss"]),
                                rtol=1e-6)
@@ -264,6 +264,19 @@ def test_multihost_initialize_refuses_what_it_cannot_do(monkeypatch):
 
 def test_spawn_reports_a_failed_rank():
     with pytest.raises(RuntimeError, match="rank 1 failed on purpose"):
+        multihost.spawn(ranks.fail_on_rank_one, 2, device="cpu",
+                        timeout=120)
+
+
+def test_spawn_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """Without ``device``, spawn asks for CUDA: on a machine without it,
+    resolve_device's error comes before any process starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_process(*a, **kw):
+        raise AssertionError("spawn started processes")
+    monkeypatch.setattr(multihost.multiprocessing, "get_context", no_process)
+    with pytest.raises(RuntimeError, match="not available"):
         multihost.spawn(ranks.fail_on_rank_one, 2, timeout=120)
 
 

@@ -46,7 +46,7 @@ def test_training_on_two_ranks(tmp_path):
     cfg = _config(tmp_path)
     assert len(StaticDataset(cfg["data_path"], "train",
                              min_points=cfg["min_points_train"])) == 10
-    multihost.spawn(ranks.train_rank, 2, (cfg, str(tmp_path)))
+    multihost.spawn(ranks.train_rank, 2, (cfg, str(tmp_path)), device="cpu")
     out = ranks.load(str(tmp_path), 2)
     for o in out:
         first = o["first"]

@@ -14,7 +14,10 @@ tests exercise.
 Entry points: ``upcc_tpu_torch.codec.io.load_codec(exp_dir)`` or
 ``upcc_tpu_torch.codec.codec.Codec(model, device="cuda")``; the file CLI
 ``python3 -m upcc_tpu_torch.compress``; the probes
-``python3 -m upcc_tpu_torch.probes.<name>``.
+``python3 -m upcc_tpu_torch.probes.<name>``; the geometry-attribution
+driver ``python3 -m upcc_tpu_torch.diag_geometry``.  Each subpackage
+exports the names of its JAX twin (``from upcc_tpu_torch.codec import
+Codec``); importing this package imports torch alone.
 """
 
 import torch

@@ -1,1 +1,4 @@
 """Codec: container format and compress/decompress orchestration."""
+
+from .codec import Codec
+from . import bitstream

@@ -4,7 +4,10 @@ Shared libraries are built with g++ into ``build/native`` at the
 repository root (``UPCC_TORCH_BUILD`` overrides the root), keyed by the
 SHA-256 of the source plus the compile flags: a fresh checkout compiles
 for the local microarchitecture (``-march=native``) and an edited source
-always rebuilds.  A failed build raises.
+always rebuilds.  ``load_native`` raises when the build fails, with
+g++'s stderr; ``try_native`` turns that into one warning and ``False``,
+on which each coder runs its pure-Python (or numpy) twin, which writes
+the same bytes.
 """
 
 import ctypes
@@ -12,6 +15,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import warnings
 
 from ..kernels import BUILD_DIR
 
@@ -47,3 +51,15 @@ def load_native(src_path, name):
             if os.path.exists(tmp):
                 os.unlink(tmp)
     return ctypes.CDLL(lib_path)
+
+
+def try_native(src_path, name):
+    """``load_native``, or ``False`` with one warning carrying the build's
+    error (g++'s stderr) where the library cannot be built or loaded."""
+    try:
+        return load_native(src_path, name)
+    except (RuntimeError, OSError) as e:
+        warnings.warn(f"native {name} unavailable, running its Python "
+                      f"twin (the same output, far slower):\n{e}",
+                      RuntimeWarning, stacklevel=3)
+        return False

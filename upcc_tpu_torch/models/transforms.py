@@ -12,8 +12,9 @@ prune to the transmitted k (the finest level in grandparent layout,
 position the kernel-5 transpose reaches: the covered children of the
 27-dilated parent set (the candidate-set ablation); it runs every level
 outside grandparent layout.  ``ext_keep``/``emit_last_logits`` are the
-coded-occupancy hooks of ``codec/refine.py``.  Not ported yet: the oracle
-diagnostics.
+coded-occupancy hooks of ``codec/refine.py``; ``oracle_gt``/``oracle_levels``
+the diagnostic one of ``diag_geometry.py``, which prunes a level by GT
+membership instead of the learned ranking.
 
 The same forwards train: with gradients on, every tap conv runs through
 ``ops.family.TapGemm`` and the prunes through ``compact``'s gradient; the
@@ -184,7 +185,18 @@ class SparseSynthesisTransform(nn.Module):
             return k[lvl]
         return torch.ceil(k[lvl].float() * s).to(k.dtype)
 
-    def _prune_logits(self, logits, cvalid):
+    def _prune_logits(self, lvl, cand_keys, logits, cvalid, oracle_gt,
+                      oracle_levels):
+        if oracle_gt is not None and lvl in oracle_levels:
+            # diagnostic oracle: GT membership replaces the learned ranking
+            # (and the floor); +1 for a valid candidate in the sorted,
+            # SENTINEL-padded GT level, -1 for every other
+            gk = oracle_gt[lvl].contiguous()
+            idx = torch.searchsorted(gk, cand_keys).clamp(
+                max=gk.shape[0] - 1)
+            occ = (gk[idx] == cand_keys) & C.key_is_valid(cand_keys)
+            one = torch.ones_like(logits)
+            return torch.where(occ, one, -one)
         if not self.min_one_child:
             return logits
         # per-parent floor: candidates arrive parent-major, 8 per parent;
@@ -197,14 +209,20 @@ class SparseSynthesisTransform(nn.Module):
         return logits + bonus.reshape(-1)
 
     def forward(self, y: SparseTensor, k, prune_caps=None, y_struct=None,
-                num_levels=3, ext_keep=(), emit_last_logits=False):
+                num_levels=3, oracle_gt=None, oracle_levels=(), ext_keep=(),
+                emit_last_logits=False):
         """y: latents (stride 8); k: int32[3, max_batch] target counts;
         prune_caps: static pruned-level capacities; y_struct: the params
         graph's stride-16 structure (g_s then performs no search).
+        oracle_gt/oracle_levels: at a level in ``oracle_levels`` the top-k
+        ranks +1 for candidates in ``oracle_gt[lvl]`` (sorted GT keys of
+        that level) and -1 for the rest, in place of the learned logits
+        and the ``min_one_child`` floor (``prune_slack`` still applies);
+        the returned logits stay the learned ones.
         ext_keep[lvl] (bool, candidate-aligned) replaces the top-k ranking
-        of that level by an externally decoded selection;
-        emit_last_logits stops at level num_levels-1 right after its
-        occupancy logits (no prune, no color head).
+        of that level by an externally decoded selection (before the
+        oracle); emit_last_logits stops at level num_levels-1 right after
+        its occupancy logits (no prune, no color head).
         Returns (x_hat, candidates, logits_list)."""
         base_cap = y.capacity
         dev = y.keys.device
@@ -279,8 +297,8 @@ class SparseSynthesisTransform(nn.Module):
                     keep = ext_keep[lvl] & cvalid
                 else:
                     keep = topk_mask(cand, self._prune_logits(
-                        logits.detach(), cvalid), self._k_eff(k, lvl)) \
-                        & cvalid
+                        lvl, cand.keys, logits.detach(), cvalid, oracle_gt,
+                        oracle_levels), self._k_eff(k, lvl)) & cvalid
                 pk, pf = compact(child_keys, keep, cand.feats,
                                  out_capacity=caps[lvl])
                 x = SparseTensor(keys=pk, feats=pf, stride=x.stride // 2)
@@ -325,7 +343,8 @@ class SparseSynthesisTransform(nn.Module):
                 keep = ext_keep[lvl] & cvalid
             else:
                 keep = topk_mask(cand, self._prune_logits(
-                    logits.detach(), cvalid), self._k_eff(k, lvl)) & cvalid
+                    lvl, cand.keys, logits.detach(), cvalid, oracle_gt,
+                    oracle_levels), self._k_eff(k, lvl)) & cvalid
             # prune with parent links carried through the compaction
             pk, pf, ppar, pslot = compact(child_keys, keep, cand.feats,
                                           cf.point_parent, cf.point_slot,

@@ -62,10 +62,12 @@ class UnifiedModel(nn.Module):
         self.entropy_model = MeanScaleHyperprior(max_batch=mb, **em)
 
     def forward(self, x: SparseTensor, q, Lambda, training=True,
-                root_nbrs=None, generator=None):
+                root_nbrs=None, generator=None, oracle_levels=()):
         """x: the input cloud (stride 1, colors in [0, 1] as feats); q and
         Lambda [B, 2]; root_nbrs: host root maps (``host_root_maps``);
-        generator: the training noise's.  Returns the dict the loss reads:
+        generator: the training noise's; oracle_levels: g_s levels pruned
+        by the GT pyramid (the diagnostic oracle of
+        ``SparseSynthesisTransform``).  Returns the dict the loss reads:
         prediction, gt_pyramid (stride 4, 2, 1 key sets), candidates,
         occ_logits, q_map, likelihoods {'y', 'z'} and k."""
         root_nbrs = root_nbrs or {}
@@ -77,8 +79,11 @@ class UnifiedModel(nn.Module):
         # the GT pyramid: stride-2 key downsamples of the input
         p1 = downsample_keys(x.keys)
         p2 = downsample_keys(p1)
-        x_hat, candidates, occ_logits = self.g_s(y_hat, k)
-        return {"prediction": x_hat, "gt_pyramid": [p2, p1, x.keys],
+        gt_pyramid = [p2, p1, x.keys]
+        x_hat, candidates, occ_logits = self.g_s(
+            y_hat, k, oracle_gt=gt_pyramid if oracle_levels else None,
+            oracle_levels=tuple(oracle_levels))
+        return {"prediction": x_hat, "gt_pyramid": gt_pyramid,
                 "candidates": candidates, "occ_logits": occ_logits,
                 "q_map": Lambda, "likelihoods": {"y": lik_y, "z": lik_z},
                 "k": k}

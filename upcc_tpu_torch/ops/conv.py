@@ -81,3 +81,21 @@ def apply_avg_pool(x: SparseTensor, out_keys, offsets, mode, out_stride):
     feats = acc / cnt.clamp(min=1.0)[:, None]
     feats = feats * C.key_is_valid(out_keys)[:, None].to(feats.dtype)
     return SparseTensor(keys=out_keys, feats=feats, stride=out_stride)
+
+
+def conv_param_shapes(kernel_size, cin, cout):
+    """Shapes of a conv's (weights, bias): ([K^3, cin, cout], [cout])."""
+    k = kernel_size ** 3
+    return (k, cin, cout), (cout,)
+
+
+def init_conv_weights(generator, kernel_size, cin, cout,
+                      dtype=torch.float32):
+    """Variance-scaling init over the full fan-in (K^3 * cin): weights
+    N(0, 1 / fan_in) drawn from ``generator`` on its device, zero bias."""
+    (k, _, _), _ = conv_param_shapes(kernel_size, cin, cout)
+    std = (1.0 / (k * cin)) ** 0.5
+    w = torch.randn((k, cin, cout), generator=generator, dtype=dtype,
+                    device=generator.device) * std
+    b = torch.zeros((cout,), dtype=dtype, device=generator.device)
+    return w, b

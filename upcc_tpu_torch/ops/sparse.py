@@ -37,12 +37,31 @@ class SparseTensor:
         return self.keys.shape[0]
 
     @property
+    def num_channels(self):
+        return self.feats.shape[-1]
+
+    @property
     def valid(self):
         return C.key_is_valid(self.keys)
 
     @property
     def batch(self):
         return C.key_batch(self.keys)
+
+    @property
+    def units(self):
+        return C.key_units(self.keys)
+
+    def coordinates(self):
+        """int32 [N, 4] (batch, x, y, z) in raw (stride-scaled)
+        coordinates; batch -1 at padding slots."""
+        b = torch.where(self.valid, self.batch.to(torch.int32), -1)
+        xyz = self.units * self.stride
+        return torch.cat([b[:, None], xyz], dim=1)
+
+    def count(self):
+        """Number of valid points (a 0-d int32 tensor)."""
+        return self.valid.sum(dtype=torch.int32)
 
     def counts_per_batch(self, max_batch):
         """int32[max_batch] valid point count per batch index."""
@@ -52,6 +71,10 @@ class SparseTensor:
                              device=self.keys.device)
         counts.index_add_(0, b, torch.ones_like(b, dtype=torch.int32))
         return counts[:max_batch]
+
+    def mask_feats(self):
+        """feats with padding rows zeroed."""
+        return self.feats * self.valid[:, None].to(self.feats.dtype)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -332,7 +355,7 @@ def with_feats(st: SparseTensor, feats, stride=None):
 
 
 def mask_feats(st: SparseTensor):
-    return st.feats * st.valid[:, None].to(st.feats.dtype)
+    return st.mask_feats()
 
 
 def from_points(batch, xyz, feats, capacity, stride=1, dedup=True):
@@ -414,35 +437,68 @@ def dilate_keys(keys, capacity):
 _vox_lib = None
 
 
-def voxelize_host_np(batch, xyz, feats, capacity, stride=1):
-    """Host voxelization through the native ``voxelize.cpp``: sorted,
-    dedup'd (first occurrence wins), sentinel-padded numpy arrays
-    (keys int64 [capacity], feats f32 [capacity, C])."""
+def _load_voxelize():
+    """The native voxelizer (``coding/csrc/voxelize.cpp``), or False (then
+    the numpy path runs)."""
     global _vox_lib
     if _vox_lib is None:
-        from ..coding.build import load_native
+        from ..coding.build import try_native
         src = os.path.join(os.path.dirname(__file__), "..", "coding", "csrc",
                            "voxelize.cpp")
-        lib = load_native(src, "voxelize")
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        f32p = ctypes.POINTER(ctypes.c_float)
-        lib.voxelize.restype = ctypes.c_int64
-        lib.voxelize.argtypes = [i32p, i32p, f32p, ctypes.c_int64,
-                                 ctypes.c_int64, ctypes.c_int64,
-                                 ctypes.c_int64, i64p, f32p]
+        lib = try_native(src, "voxelize")
+        if lib:
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            f32p = ctypes.POINTER(ctypes.c_float)
+            lib.voxelize.restype = ctypes.c_int64
+            lib.voxelize.argtypes = [i32p, i32p, f32p, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int64, i64p, f32p]
         _vox_lib = lib
+    return _vox_lib
+
+
+def voxelize_host_np(batch, xyz, feats, capacity, stride=1, dedup=True):
+    """Host voxelization: sorted, sentinel-padded numpy arrays (keys int64
+    [capacity], feats f32 [capacity, C]); rows with batch < 0 are padding.
+    With ``dedup`` a voxel's first occurrence wins, through the native
+    ``voxelize.cpp`` where it builds; the numpy path gives the same arrays
+    and is the only path without ``dedup``."""
+    lib = _load_voxelize() if dedup else False
+    if not lib:
+        return _voxelize_np(batch, xyz, feats, capacity, stride, dedup)
     batch = np.ascontiguousarray(batch, np.int32)
     xyz = np.ascontiguousarray(xyz, np.int32)
     feats = np.ascontiguousarray(feats, np.float32)
     n, c = feats.shape
     out_keys = np.empty(capacity, np.int64)
     out_feats = np.empty((capacity, c), np.float32)
-    _vox_lib.voxelize(
+    lib.voxelize(
         batch.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         xyz.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         feats.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         n, c, stride, capacity,
         out_keys.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         out_feats.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out_keys, out_feats
+
+
+def _voxelize_np(batch, xyz, feats, capacity, stride, dedup):
+    batch = np.asarray(batch)
+    feats = np.asarray(feats, np.float32)
+    units = np.asarray(xyz).astype(np.int64) // stride
+    keys = np.where(batch >= 0, C.morton_encode_np(units)
+                    | (batch.astype(np.int64) << C.BATCH_SHIFT), C.SENTINEL)
+    order = np.argsort(keys, kind="stable")
+    keys, feats = keys[order], feats[order]
+    if dedup:
+        keep = np.ones(len(keys), bool)
+        keep[1:] = keys[1:] != keys[:-1]
+        keep &= keys != C.SENTINEL
+        keys, feats = keys[keep], feats[keep]
+    n = min(len(keys), capacity)
+    out_keys = np.full(capacity, C.SENTINEL, np.int64)
+    out_feats = np.zeros((capacity, feats.shape[1]), np.float32)
+    out_keys[:n] = keys[:n]
+    out_feats[:n] = feats[:n]
     return out_keys, out_feats

@@ -108,8 +108,8 @@ def free_port():
 def _rank_main(fn, rank, world_size, init_method, device, backend, args,
                errors):
     try:
-        initialize(init_method, world_size, rank, device=device,
-                   backend=backend)
+        initialize(init_method, world_size, rank, local_rank=rank,
+                   device=device, backend=backend)
         try:
             fn(rank, world_size, *args)
         finally:
@@ -119,15 +119,18 @@ def _rank_main(fn, rank, world_size, init_method, device, backend, args,
         raise
 
 
-def spawn(fn, world_size, args=(), device="cpu", backend=None,
+def spawn(fn, world_size, args=(), device="cuda", backend=None,
           timeout=600):
     """Run ``fn(rank, world_size, *args)`` in ``world_size`` new processes
     (the spawn start method), each in a process group on localhost over a
-    free port, with ``device`` as every rank's device (``cuda:0`` puts
-    every rank on one card, with gloo).  ``fn`` must be importable by name.
-    Waits for every process; raises if any failed (the others, which may
-    wait in a collective for it, are then terminated) or if they outlive
-    ``timeout`` seconds."""
+    free port, with ``device`` as every rank's device (``cuda`` puts rank
+    i on ``cuda:i``, ``cuda:0`` every rank on one card, with gloo;
+    ``cpu`` runs the ranks on the CPU).  Raises before starting any
+    process where CUDA is asked for and absent.  ``fn`` must be
+    importable by name.  Waits for every process; raises if any failed
+    (the others, which may wait in a collective for it, are then
+    terminated) or if they outlive ``timeout`` seconds."""
+    resolve_device(device)
     ctx = multiprocessing.get_context("spawn")
     errors = ctx.Queue()
     init_method = f"tcp://localhost:{free_port()}"
