@@ -280,6 +280,42 @@ def test_spawn_defaults_to_cuda_and_raises_without_it(monkeypatch):
         multihost.spawn(ranks.fail_on_rank_one, 2, timeout=120)
 
 
+class _Started(Exception):
+    pass
+
+
+@pytest.mark.parametrize("device,world,cards,starts", [
+    ("cuda", 2, 1, False), ("cuda", 2, 2, True), ("cuda:1", 2, 1, False),
+    ("cuda:0", 2, 1, True), ("cuda:1", 1, 2, True)])
+def test_spawn_checks_the_card_count_before_any_process(
+        monkeypatch, device, world, cards, starts):
+    """With too few cards (an unindexed ``cuda`` and more ranks than
+    cards, or ``cuda:i`` past the last card) spawn raises before it makes
+    any process; ``cuda:0`` shared by every rank stays allowed."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    made = []
+
+    class Context:
+        def Queue(self):
+            return None
+
+        def Process(self, *a, **kw):
+            made.append(kw)
+            raise _Started
+
+    monkeypatch.setattr(multihost.multiprocessing, "get_context",
+                        lambda method: Context())
+    if starts:
+        with pytest.raises(_Started):
+            multihost.spawn(ranks.fail_on_rank_one, world, device=device)
+        assert len(made) == 1
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            multihost.spawn(ranks.fail_on_rank_one, world, device=device)
+        assert made == []
+
+
 def test_dryrun_multichip_two_ranks(capfd):
     from upcc_tpu_torch.parallel.dryrun import dryrun_multichip
     dryrun_multichip(2)

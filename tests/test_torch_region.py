@@ -132,6 +132,25 @@ def test_min_one_child_with_region_raises():
             jax.random.PRNGKey(0), y, jnp.ones((3, 8), jnp.int32))
 
 
+@pytest.mark.parametrize("entry", ["compress", "compress_multi"])
+def test_coded_geometry_with_region_raises(entry):
+    """geom="coded" on a region-candidate model raises a clear ValueError
+    before any work (the coded bits cover 8 children a parent, the region
+    candidates the 27-dilated set; the JAX codec fails later, at its prune
+    site, with a shape error)."""
+    torch.manual_seed(0)
+    codec = TCodec(TModel(CFG), device="cpu")
+    codec.update()
+
+    def no_work(*a, **kw):
+        raise AssertionError("the codec started encoding")
+    codec._partition_blocks = no_work
+    frame = np.zeros((8, 6), np.float32)
+    qs = (0.5, 0.5) if entry == "compress" else [(0.5, 0.5)]
+    with pytest.raises(ValueError, match="region_candidates"):
+        getattr(codec, entry)(frame, qs, geom="coded")
+
+
 def test_region_config_matches_yaml():
     import yaml
     with open(os.path.join(ROOT, "configs", "ablation",

@@ -119,6 +119,18 @@ def test_subpackages_import_in_a_fresh_process_without_jax_or_builds():
         assert not bad, (name, bad)
 
 
+@pytest.mark.parametrize("name", ["bench", "plot", "graft_entry"])
+def test_root_driver_twins_import_in_a_fresh_process_without_jax_or_builds(
+        name):
+    """The twins of the root drivers import alone without jax, the JAX
+    package, pandas or matplotlib, and build nothing."""
+    new = _fresh(_CHILD.format(names=[f"upcc_tpu_torch.{name}"]))
+    bad = [m for m in new if m.split(".")[0] in (
+        "upcc_tpu", "jax", "flax", "jaxlib", "pandas", "matplotlib")]
+    assert not bad, (name, bad)
+    assert f"upcc_tpu_torch.{name}" in new
+
+
 # -- SparseTensor accessors, conv init ---------------------------------------
 
 def _tensors():

@@ -200,6 +200,12 @@ class Codec:
             raise RuntimeError("call update() first")
         if geom not in ("topk", "coded"):
             raise ValueError(f"geom must be 'topk' or 'coded', got {geom!r}")
+        if geom == "coded" and self.model.g_s.region_candidates:
+            # the JAX codec fails here later, at its prune site
+            raise ValueError("geom='coded' is not supported with "
+                             "region_candidates: the coded occupancy "
+                             "covers 8 children a parent, the region "
+                             "candidates the 27-dilated set")
         if block_size > 1024:
             # block-local Morton codes hold 3 x 10 coordinate bits
             raise ValueError("block_size > 1024 not supported")

@@ -126,11 +126,20 @@ def spawn(fn, world_size, args=(), device="cuda", backend=None,
     free port, with ``device`` as every rank's device (``cuda`` puts rank
     i on ``cuda:i``, ``cuda:0`` every rank on one card, with gloo;
     ``cpu`` runs the ranks on the CPU).  Raises before starting any
-    process where CUDA is asked for and absent.  ``fn`` must be
-    importable by name.  Waits for every process; raises if any failed
-    (the others, which may wait in a collective for it, are then
-    terminated) or if they outlive ``timeout`` seconds."""
-    resolve_device(device)
+    process where CUDA is asked for and absent, or where the cards it
+    names are not there (``cuda`` with more ranks than cards, ``cuda:i``
+    with i past the last card).  ``fn`` must be importable by name.
+    Waits for every process; raises if any failed (the others, which may
+    wait in a collective for it, are then terminated) or if they outlive
+    ``timeout`` seconds."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        need = world_size if dev.index is None else dev.index + 1
+        if need > cards:
+            raise RuntimeError(
+                f"spawn: {world_size} ranks on {str(device)!r} need "
+                f"{need} CUDA device(s), {cards} visible")
     ctx = multiprocessing.get_context("spawn")
     errors = ctx.Queue()
     init_method = f"tcp://localhost:{free_port()}"

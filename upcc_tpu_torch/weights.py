@@ -24,6 +24,7 @@ to bfloat16, to nearest even).  Weights trained by the port then load
 under ``upcc_tpu`` with ``load_params``.
 """
 
+import json
 import os
 import struct
 
@@ -43,6 +44,18 @@ FLAGSHIP_CONFIG = {
     "g_s": {"C_out": 3, "N1": 128, "N2": 128, "N3": 128, "N4": 128,
             "min_one_child": True},
 }
+
+
+def flagship_config(width):
+    """The flagship's model config at ``width`` (N1-N4 and C_bottleneck;
+    C_hyper_bottleneck 1.5 x width, 192 at the flagship's 128)."""
+    cfg = json.loads(json.dumps(FLAGSHIP_CONFIG))
+    for part in ("g_a", "g_s"):
+        cfg[part].update({f"N{i}": width for i in range(1, 5)})
+    cfg["entropy_model"]["C_bottleneck"] = width
+    cfg["entropy_model"]["C_hyper_bottleneck"] = width * 3 // 2
+    return cfg
+
 
 # the model section of configs/ablation/abl_region5.yaml (region-candidate
 # g_s, no committed weights), written out for the same reason; a test holds
