@@ -214,7 +214,6 @@ from upcc_tpu_torch.ops.topk import (topk_mask, topk_mask_plain, topk_plan,
                                      topk_smem)
 from upcc_tpu_torch.probes import (PEAK_BF16, PEAK_BYTES, PEAK_TF32,
                                    micro_gather, window_gather)
-from upcc_tpu_torch.profile_codec import _device_us
 from upcc_tpu_torch.weights import (ABL_REGION5_CONFIG, FLAGSHIP_CONFIG,
                                     load_weights)
 
@@ -239,6 +238,14 @@ REPLACES = {
                   "upcc_tpu/ops/family.py:610"),
 }
 
+
+def _device_us(evt):
+    """An averaged profiler event's own device time in us (the attribute's
+    name differs across torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return getattr(evt, name)
+    return 0.0
 
 def nvidia_smi():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

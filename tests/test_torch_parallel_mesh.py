@@ -174,6 +174,7 @@ def test_shard_draws_do_not_depend_on_the_world(world, monkeypatch):
     class Stub:
         _dp_steps = Training._dp_steps
         _shard_step = Training._shard_step
+        _step_span = Training._step_span
 
         def __init__(self):
             self.n_dp, self.batch_size, self.q_func = world, 2, qf
@@ -186,6 +187,8 @@ def test_shard_draws_do_not_depend_on_the_world(world, monkeypatch):
         def step_fn(self, x, q, lam, root, gen):
             calls.append((x, q, lam, torch.rand(5, generator=gen)))
             return {}
+
+        step_fn.step = 0  # the step number a step's root span is under
 
     for rank in range(world):
         monkeypatch.setattr(multihost, "world", lambda r=rank: (r, world))

@@ -26,6 +26,7 @@ constants), so the two packages truncate identically.
 """
 
 import contextlib
+import contextvars
 import copy
 import math
 import time
@@ -45,6 +46,7 @@ from ..ops import coords as C
 from ..ops import family as F
 from ..ops.sparse import SparseTensor, voxelize_host_np
 from ..parallel.block_parallel import parallel_map_blocks, shard_points_by_block
+from ..utils import profiling
 from . import bitstream, color_affine, color_resid, refine
 
 MAX_GROUP = 63  # batch bits hold 6 bits; batch index 63 is reserved
@@ -149,17 +151,20 @@ class Codec:
 
     @contextlib.contextmanager
     def _stage(self, name):
-        if not self.profile:
+        """A stage of a frame: a tracer span (``utils/profiling.py``), and
+        with ``profile`` its synchronized wall seconds in stage_times."""
+        with profiling.span(name):
+            if not self.profile:
+                yield
+                return
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
             yield
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.stage_times[name] = self.stage_times.get(name, 0.0) \
-            + time.perf_counter() - t0
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.stage_times[name] = self.stage_times.get(name, 0.0) \
+                + time.perf_counter() - t0
 
     def _dev(self, x):
         return torch.as_tensor(np.ascontiguousarray(x)).to(self.device)
@@ -221,16 +226,17 @@ class Codec:
         candidate's true occupancy bit is entropy-coded with the learned
         logit as context, so geometry decodes exactly."""
         self._check_encode(block_size, geom)
-        with self._stage("enc.partition"):
-            groups, levels = self._partition_blocks(pointcloud, block_size,
-                                                    scaling_factor)
-        qv = np.asarray(q, np.float32).reshape(1, 2)
-        results = self._map_groups(
-            lambda c, item: c._encode_at_q(
-                c._encode_shared(item[0], item[1], levels), qv, geom),
-            groups)
-        blocks = [b for r in results for b in r]
-        return bitstream.write_container(path, blocks, scaling_factor)
+        with profiling.frame("codec.compress"):
+            with self._stage("enc.partition"):
+                groups, levels = self._partition_blocks(
+                    pointcloud, block_size, scaling_factor)
+            qv = np.asarray(q, np.float32).reshape(1, 2)
+            results = self._map_groups(
+                lambda c, item: c._encode_at_q(
+                    c._encode_shared(item[0], item[1], levels), qv, geom),
+                groups)
+            blocks = [b for r in results for b in r]
+            return bitstream.write_container(path, blocks, scaling_factor)
 
     @torch.no_grad()
     def compress_multi(self, pointcloud, qs, block_size=1024,
@@ -243,22 +249,23 @@ class Codec:
         symbols and its y streams (and, for geom="coded", its occupancy
         stages, whose context logits read the dequantized latents)."""
         self._check_encode(block_size, geom)
-        groups, levels = self._partition_blocks(pointcloud, block_size,
-                                                scaling_factor)
-        # group i runs on the same device (round-robin) in every pass, so
-        # each q pass finds its group's shared state there
-        shareds = self._map_groups(
-            lambda c, item: c._encode_shared(item[0], item[1], levels),
-            groups)
-        out = []
-        for q in qs:
-            qv = np.asarray(q, np.float32).reshape(1, 2)
-            results = self._map_groups(
-                lambda c, sh: c._encode_at_q(sh, qv, geom), shareds)
-            blocks = [b for r in results for b in r]
-            out.append(bitstream.write_container(None, blocks,
-                                                 scaling_factor))
-        return out
+        with profiling.frame("codec.compress"):
+            groups, levels = self._partition_blocks(pointcloud, block_size,
+                                                    scaling_factor)
+            # group i runs on the same device (round-robin) in every pass,
+            # so each q pass finds its group's shared state there
+            shareds = self._map_groups(
+                lambda c, item: c._encode_shared(item[0], item[1], levels),
+                groups)
+            out = []
+            for q in qs:
+                qv = np.asarray(q, np.float32).reshape(1, 2)
+                results = self._map_groups(
+                    lambda c, sh: c._encode_at_q(sh, qv, geom), shareds)
+                blocks = [b for r in results for b in r]
+                out.append(bitstream.write_container(None, blocks,
+                                                     scaling_factor))
+            return out
 
     # -- worker threads --------------------------------------------------------
 
@@ -297,7 +304,10 @@ class Codec:
         window = deque()
         with ThreadPoolExecutor(max_workers=depth) as ex:
             for item in items:
-                window.append(ex.submit(self._in_worker, fn, item))
+                # the worker runs in a copy of this thread's context, so
+                # its frame's root span nests where the caller stands
+                window.append(ex.submit(contextvars.copy_context().run,
+                                        self._in_worker, fn, item))
                 if len(window) > depth:
                     yield window.popleft().result()
             while window:
@@ -367,6 +377,9 @@ class Codec:
             slices = [slice(int(ofs[i]), int(ofs[i + 1])) for i in range(g)]
             with self._stage(f"{side}.occ_coder"):
                 occ = get_bits(lvl, parents, bins_np, slices)
+            if profiling.enabled():  # the coded selection is g_s's prune
+                profiling.count("gs.generated", len(occ))
+                profiling.count("gs.kept", np.count_nonzero(occ))
             sel = refine.children_np(parents)[occ]
             keep_pad = np.zeros(8 * cap_in, bool)
             keep_pad[:len(occ)] = occ
@@ -571,6 +584,10 @@ class Codec:
         then the container's signaled color corrections, if any)."""
         if self.tables is None:
             raise RuntimeError("call update() first")
+        with profiling.frame("codec.decompress"):
+            return self._decompress(data)
+
+    def _decompress(self, data):
         blocks, scaling_factor = bitstream.read_container(data)
         outs = self._map_groups(lambda c, blks: c._decompress_group(blks),
                                 _chunk_decode_groups(blocks))
@@ -740,6 +757,12 @@ class Codec:
                                 * (slack[lv] if lv < len(slack) else 1.0))
                         .sum())) for lv in range(3))
         with self._stage("dec.synthesis"):
+            if profiling.enabled():
+                n_y_b = np.zeros(CODEC_MAX_BATCH, np.int64)
+                n_y_b[:g] = [b["n_y"] for b in blks]
+                for gen, kept in m.g_s.prune_counts(n_y_b, k):
+                    profiling.count("gs.generated", gen)
+                    profiling.count("gs.kept", kept)
             st = m.decode_reconstruct_device(y_keys, self._dev(y_sym), dec,
                                              self._dev(k), prune_caps)
         with self._stage("dec.fetch"):

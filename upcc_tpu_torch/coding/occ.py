@@ -17,6 +17,7 @@ import os
 
 import numpy as np
 
+from ..utils import profiling
 from .build import try_native
 from .octree import _Ctx, _Decoder, _Encoder
 
@@ -46,6 +47,7 @@ def _load():
     return _lib
 
 
+@profiling.coder("occ.enc")
 def encode(bits, bins):
     """bits: bool/uint8 [N]; bins: uint8 [N] logit context bins; N % 8 == 0,
     parent-major candidate order.  Returns bytes."""
@@ -68,6 +70,7 @@ def encode(bits, bins):
     return out[:n].tobytes()
 
 
+@profiling.coder("occ.dec")
 def decode(data, bins):
     """bytes + the same context bins -> uint8 bits [N]."""
     bins = np.ascontiguousarray(np.asarray(bins, np.uint8))

@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 
+from ..utils import profiling
 from .build import try_native
 
 _src = os.path.join(os.path.dirname(__file__), "csrc", "octree.cpp")
@@ -42,6 +43,7 @@ def _load():
     return _lib
 
 
+@profiling.coder("octree.enc")
 def encode(morton_codes, levels):
     """morton_codes: sorted unique int64 [N] (< 8**levels) -> bytes."""
     codes = np.ascontiguousarray(morton_codes, np.int64)
@@ -60,6 +62,7 @@ def encode(morton_codes, levels):
     return out[:n].tobytes()
 
 
+@profiling.coder("octree.dec")
 def decode(data, levels, max_points):
     """bytes -> sorted int64 morton codes [N]."""
     if len(data) == 0:

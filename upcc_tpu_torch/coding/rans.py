@@ -8,6 +8,7 @@ import os
 
 import numpy as np
 
+from ..utils import profiling
 from .build import try_native
 
 _PROB_BITS = 16
@@ -40,6 +41,7 @@ def _asi32(a):
     return np.ascontiguousarray(a, dtype=np.int32)
 
 
+@profiling.coder("rans.enc")
 def encode_with_indexes(values, indexes, cdfs, cdf_lengths, offsets):
     """values/indexes: int arrays [N]; cdfs: int32 [ncdf, L]. -> bytes."""
     values, indexes = _asi32(values), _asi32(indexes)
@@ -61,6 +63,7 @@ def encode_with_indexes(values, indexes, cdfs, cdf_lengths, offsets):
     return out[:n].tobytes()
 
 
+@profiling.coder("rans.dec")
 def decode_with_indexes(data, indexes, cdfs, cdf_lengths, offsets):
     """Inverse of encode_with_indexes. -> int32 values [N]."""
     indexes = _asi32(indexes)

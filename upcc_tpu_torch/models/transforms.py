@@ -23,6 +23,7 @@ top-k masks carry none.  Region mode's transposes run over cross maps
 through ``ops.family.transposed_map``.
 """
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -184,6 +185,28 @@ class SparseSynthesisTransform(nn.Module):
         if lvl >= 2 or s == 1.0:
             return k[lvl]
         return torch.ceil(k[lvl].float() * s).to(k.dtype)
+
+    def prune_counts(self, parents, k):
+        """Per level, (candidates generated, candidates kept) by a top-k
+        decode, from sizes the host holds: ``parents`` the valid y voxels
+        of each batch, ``k`` int [3, max_batch] the targets.  Each parent
+        brings 8 candidates and a batch keeps min(k_eff, its candidates)
+        (``_k_eff``'s slack, in f32 as on the device); the kept are the
+        next level's parents.  Region candidates are not counted (empty)."""
+        if self.region_candidates:
+            return []
+        out = []
+        parents = np.asarray(parents, np.int64)
+        for lvl in range(3):
+            s = self.prune_slack[lvl] if lvl < len(self.prune_slack) else 1.0
+            k_eff = np.asarray(k[lvl], np.int64)
+            if lvl < 2 and s != 1.0:
+                k_eff = np.ceil(k_eff.astype(np.float32)
+                                * np.float32(s)).astype(np.int64)
+            cands = 8 * parents
+            parents = np.minimum(np.maximum(k_eff, 0), cands)
+            out.append((int(cands.sum()), int(parents.sum())))
+        return out
 
     def _prune_logits(self, lvl, cand_keys, logits, cvalid, oracle_gt,
                       oracle_levels):

@@ -14,6 +14,7 @@ function runs one worker a distinct device), so the dispatch also runs on
 one card or on the CPU; the bytes are the same either way.
 """
 
+import contextvars
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -32,7 +33,10 @@ def parallel_map_blocks(fn, blocks, devices):
     if n_workers <= 1:
         return [fn(blk, dev) for blk, dev in zip(blocks, devs)]
     with ThreadPoolExecutor(max_workers=n_workers) as pool:
-        futures = [pool.submit(fn, blk, dev) for blk, dev in zip(blocks, devs)]
+        # each call runs in a copy of the caller's context (its open
+        # tracer span, ``utils/profiling.py``)
+        futures = [pool.submit(contextvars.copy_context().run, fn, blk, dev)
+                   for blk, dev in zip(blocks, devs)]
         return [f.result() for f in futures]
 
 

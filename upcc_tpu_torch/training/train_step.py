@@ -15,6 +15,8 @@ Adam computes optax's ``adam`` update with the same defaults.
 
 import torch
 
+from ..utils import profiling
+
 
 def make_lr_schedule(config, steps_per_epoch):
     """StepLR in steps: lr * gamma ** (step // (step_size * steps per
@@ -78,19 +80,21 @@ class TrainStep:
 
     def loss(self, x, q, lam, root_nbrs=None, generator=None):
         """(main + aux_weight * aux, parts with ``aux_loss``)."""
-        out = self.model(x, q, lam, training=True, root_nbrs=root_nbrs,
-                         generator=generator)
-        main, parts = self.loss_obj(x, out)
-        aux = self.model.aux_loss()
-        parts = dict(parts, aux_loss=aux)
-        return main + self.aux_weight * aux, parts
+        with profiling.span("train.forward"):
+            out = self.model(x, q, lam, training=True, root_nbrs=root_nbrs,
+                             generator=generator)
+            main, parts = self.loss_obj(x, out)
+            aux = self.model.aux_loss()
+            parts = dict(parts, aux_loss=aux)
+            return main + self.aux_weight * aux, parts
 
     def __call__(self, x, q, lam, root_nbrs=None, generator=None):
         """Loss, backward, clip, update.  Returns the metrics as tensors
         (``loss`` and each part) and leaves the gradients in place."""
         self.optimizer.zero_grad(set_to_none=True)
         total, parts = self.loss(x, q, lam, root_nbrs, generator)
-        total.backward()
+        with profiling.span("train.backward"):
+            total.backward()
         return self.update({"loss": total.detach(),
                             **{k: v.detach() for k, v in parts.items()}})
 
@@ -102,9 +106,10 @@ class TrainStep:
     def update(self, metrics):
         """Clip the main group, set its rate, step both Adam groups on the
         gradients in place; returns ``metrics``."""
-        main_group, _ = self.optimizer.param_groups
-        self.clip_gradients(main_group["params"])
-        main_group["lr"] = self.schedule(self.step)
-        self.optimizer.step()
-        self.step += 1
-        return metrics
+        with profiling.span("train.clip_adam"):
+            main_group, _ = self.optimizer.param_groups
+            self.clip_gradients(main_group["params"])
+            main_group["lr"] = self.schedule(self.step)
+            self.optimizer.step()
+            self.step += 1
+            return metrics

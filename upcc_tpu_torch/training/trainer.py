@@ -48,6 +48,7 @@ from ..models.unified import UnifiedModel, host_root_maps
 from ..ops.sparse import SparseTensor, voxelize_host_np
 from ..parallel import data_parallel as dp
 from ..parallel.multihost import barrier, is_primary, world
+from ..utils import profiling
 from ..weights import load_weights, save_flax_msgpack
 from .loss import Loss
 from .train_step import TrainStep
@@ -229,27 +230,34 @@ class Training:
                 for win in np.array_split(order, max(1, len(order) // w))])
         i = 0
         while i < len(order):
-            items, total = [], 0
-            while (i < len(order) and len(items) < self.batch_size
-                   and (not items or total + sizes[order[i]] <= self.capacity)):
-                items.append(ds[order[i]])
-                total += sizes[order[i]]
-                i += 1
-            cap = self.capacity
-            if bucketing:
-                cap = next((c for c in self._CAP_LADDER
-                            if total <= c <= self.capacity), self.capacity)
-            yield collate_cubes(items, cap, rng)
+            # runs inside the step that consumes the batch
+            with profiling.span("train.collate"):
+                items, total = [], 0
+                while (i < len(order) and len(items) < self.batch_size
+                       and (not items
+                            or total + sizes[order[i]] <= self.capacity)):
+                    items.append(ds[order[i]])
+                    total += sizes[order[i]]
+                    i += 1
+                cap = self.capacity
+                if bucketing:
+                    cap = next((c for c in self._CAP_LADDER
+                                if total <= c <= self.capacity),
+                               self.capacity)
+                batch = collate_cubes(items, cap, rng)
+            yield batch
 
     def batch_tensors(self, batch, capacity=None):
         """(x, root maps) of a collated batch on the training device:
         voxelized once on the host, at ``capacity`` (default the batch's
         own)."""
-        b, x, c = batch
-        keys, feats = voxelize_host_np(b, x, c, capacity or len(b))
-        st = SparseTensor(keys=torch.from_numpy(keys).to(self.device),
-                          feats=torch.from_numpy(feats).to(self.device))
-        return st, host_root_maps(keys, self.config["model"], self.device)
+        with profiling.span("train.voxelize"):
+            b, x, c = batch
+            keys, feats = voxelize_host_np(b, x, c, capacity or len(b))
+            st = SparseTensor(keys=torch.from_numpy(keys).to(self.device),
+                              feats=torch.from_numpy(feats).to(self.device))
+            return st, host_root_maps(keys, self.config["model"],
+                                      self.device)
 
     def _seq_step(self, batch, gen_q, gen_noise):
         st, root = self.batch_tensors(batch)
@@ -257,14 +265,27 @@ class Training:
         return self.step_fn(st, q.to(self.device), lam.to(self.device), root,
                             gen_noise)
 
+    def _step_span(self):
+        """The root span of a step (``train.step``), under the step's
+        number; the batch is pulled inside it, so its collation is a
+        child."""
+        return profiling.span("train.step", unit=self.step_fn.step)
+
     def _seq_steps(self, epoch, batches):
         """The epoch's steps on one device; yields each step's metrics."""
         gen_q = torch.Generator().manual_seed(epoch)
         gen_noise = torch.Generator(device=self.device).manual_seed(epoch)
-        for step, batch in enumerate(batches):
+        batches = iter(batches)
+        for step in itertools.count():
             if self.max_steps_per_epoch and step >= self.max_steps_per_epoch:
                 return
-            yield self._seq_step(batch, gen_q, gen_noise)
+            with self._step_span() as root:
+                batch = next(batches, None)
+                if batch is None:
+                    root.drop()
+                    return
+                metrics = self._seq_step(batch, gen_q, gen_noise)
+            yield metrics
 
     def _shard_step(self, batch, capacity, q, lam, epoch, step, shard):
         """One data-parallel step on ``batch`` with the draws of group
@@ -279,23 +300,35 @@ class Training:
         rank collates all of them, so the transforms' draws stay in step,
         and voxelizes its own); yields each step's metrics."""
         lo, _ = dp.local_dp_rows(self.dp_mesh)
+        batches = iter(batches)
         for step in itertools.count():
             if self.max_steps_per_epoch and step >= self.max_steps_per_epoch:
                 return
-            group = list(itertools.islice(batches, self.n_dp))
-            if not group:
-                return
-            q, lam = dp.group_draws(self.q_func, len(group), self.batch_size,
-                                    epoch, step)
-            if len(group) == self.n_dp:
-                cap = max(len(b) for b, _, _ in group)
-                yield self._shard_step(group[lo], cap, q[lo], lam[lo], epoch,
-                                       step, lo)
+            with self._step_span() as root:
+                group = list(itertools.islice(batches, self.n_dp))
+                if not group:
+                    root.drop()
+                    return
+                q, lam = dp.group_draws(self.q_func, len(group),
+                                        self.batch_size, epoch, step)
+                full = len(group) == self.n_dp
+                if full:
+                    cap = max(len(b) for b, _, _ in group)
+                    metrics = self._shard_step(group[lo], cap, q[lo], lam[lo],
+                                               epoch, step, lo)
+                else:
+                    # trailing remainder: every rank runs each batch in
+                    # turn, the first in this step
+                    metrics = self._shard_step(group[0], None, q[0], lam[0],
+                                               epoch, step, 0)
+            yield metrics
+            if full:
                 continue
-            # trailing remainder: every rank runs each batch in turn
-            for i, batch in enumerate(group):
-                yield self._shard_step(batch, None, q[i], lam[i], epoch, step,
-                                       i)
+            for i in range(1, len(group)):
+                with self._step_span():
+                    metrics = self._shard_step(group[i], None, q[i], lam[i],
+                                               epoch, step, i)
+                yield metrics
 
     def train_epoch(self, epoch):
         rng = np.random.default_rng(epoch)

@@ -1,3 +1,3 @@
-"""Small utilities: running averages and bit counts (``misc``), stage
-timers and device traces (``profiling``), compact weight snapshots
-(``weights_io``)."""
+"""Small utilities: running averages and bit counts (``misc``), the
+port's tracer, stage timers and device traces (``profiling``), compact
+weight snapshots (``weights_io``)."""
