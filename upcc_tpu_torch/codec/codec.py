@@ -90,13 +90,7 @@ def _chunk_decode_groups(blocks):
 def _host_downsample_levels(keys_np, n_levels):
     """Exact per-level octree downsamples (numpy): the sorted valid key
     array of each coarser level, batch bits preserved."""
-    m = np.asarray(keys_np)
-    m = m[m != C.SENTINEL]
-    out = []
-    for _ in range(n_levels):
-        m = np.unique((m & ~C.KEY_MASK) | ((m & C.KEY_MASK) >> 3))
-        out.append(m)
-    return out
+    return F.host_levels(keys_np, [None] * n_levels)[1:]
 
 
 def _z_hs_caps(n_s16, n_z):
@@ -432,12 +426,13 @@ class Codec:
             keys_host, feats_host = voxelize_host_np(batch, local, colors,
                                                      cap)
 
-        # exact host downsample chain (s2..s32) sizes every device pyramid
+        # exact host downsample chain (s2..s32) sizes every device pyramid;
+        # its s16 and s32 levels are g_a's and h_a's roots
         with self._stage("enc.host_levels"):
             lvl_keys = _host_downsample_levels(keys_host, 5)
             ga_caps4 = tuple(_bucket(len(k)) for k in lvl_keys[:4])
-            _, ga_rn_idx, ga_rn_ok = F.host_root_neighbors(
-                keys_host, 4, ga_caps4[3], list(ga_caps4))
+            _, ga_rn_idx, ga_rn_ok = F.host_self_map(lvl_keys[3],
+                                                     ga_caps4[3])
 
         # colors travel on the 8-bit grid (padding rows are zero)
         colors_u8 = np.clip(np.round(feats_host * 255.0), 0, 255
@@ -459,8 +454,7 @@ class Codec:
 
         z_caps, hs_caps = _z_hs_caps(len(lvl_keys[3]), len(lvl_keys[4]))
         with self._stage("enc.hyper"):
-            _, z_rn_idx, z_rn_ok = F.host_root_neighbors(
-                y_keys_np, 2, z_caps[1], list(z_caps))
+            _, z_rn_idx, z_rn_ok = F.host_self_map(lvl_keys[4], z_caps[1])
             z_rn = (self._dev(z_rn_idx), self._dev(z_rn_ok))
             hyp = m.hyper_analyze_device(enc["y_keys"], enc["y_feats"], z_rn,
                                          z_caps)
@@ -692,8 +686,7 @@ class Codec:
         z_sym[:len(z_all)] = z_all
 
         with self._stage("dec.params"):
-            _, z_rn_idx, z_rn_ok = F.host_root_neighbors(y_keys_np, 2, zcap,
-                                                         list(z_caps))
+            _, z_rn_idx, z_rn_ok = F.host_self_map(lvl[1], zcap)
             dec = m.decode_params_device(
                 y_keys, self._dev(z_sym),
                 self._dev(np.asarray(blks[0]["q"], np.float32).reshape(1, 2)),

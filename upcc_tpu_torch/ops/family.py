@@ -229,38 +229,79 @@ def root_neighbors(keys):
     return _parent_neighbors(keys)
 
 
-def host_root_neighbors(keys_np, levels_down, cap, level_caps=None):
-    """Host (numpy) twin of the pyramid root: downsample ``levels_down``
-    octree levels (truncating at every level's cap exactly as the device
-    pyramid does), pad to ``cap`` and build the 27-neighbourhood self map
-    by vectorized searchsorted.  Returns (keys, idx int32, found bool)."""
-    sent = C.SENTINEL
+def _dedup_sorted(m):
+    """np.unique of a non-decreasing array, without its sort."""
+    keep = np.ones(len(m), bool)
+    np.not_equal(m[1:], m[:-1], out=keep[1:])
+    return np.compress(keep, m)
+
+
+def host_levels(keys_np, level_caps):
+    """Exact octree downsamples on the host (numpy): the input's valid keys,
+    then the sorted unique keys of each coarser level, batch bits preserved,
+    level ``i + 1`` cut to its first ``level_caps[i]`` keys (None: uncut)
+    before the next level derives from it.  The shift map keeps a key
+    array's order, so once the valid keys are sorted (voxelization leaves
+    them so; other input is sorted once) each level is one pass of adjacent
+    dedup."""
     m = np.asarray(keys_np)
-    m = m[m != sent]
-    key_mask = C.KEY_MASK
-    if level_caps is None:
-        level_caps = [cap] * levels_down
-    for lc in level_caps[:levels_down]:
-        m = np.unique((m & ~key_mask) | ((m & key_mask) >> 3))[:lc]
-    m = m[:cap]
+    m = m[m != C.SENTINEL]
+    out = [m]
+    if not np.all(m[1:] >= m[:-1]):
+        m = np.sort(m)
+    for lc in level_caps:
+        m = _dedup_sorted((m & ~C.KEY_MASK) | ((m & C.KEY_MASK) >> 3))[:lc]
+        out.append(m)
+    return out
+
+
+# per axis (x, y, z): the key bits of its unit coordinate
+_AXIS_BITS = [np.int64(sum(1 << (3 * i + s) for i in range(C.COORD_BITS)))
+              for s in (2, 1, 0)]
+
+
+def host_self_map(m, cap):
+    """27-neighbourhood self map of one level's sorted valid keys ``m``,
+    padded to ``cap``: each axis steps by one in Morton space (a dilated
+    add and subtract on its bits), then one searchsorted.  Returns (keys,
+    idx int32, found bool); idx is clipped to a row of ``m`` where not
+    found."""
+    sent = C.SENTINEL
     n = len(m)
     keys = np.full(cap, sent, np.int64)
     keys[:n] = m
-
-    units = C.morton_decode_np(m & key_mask)
-    bbits = m & ~key_mask
-    nu = units[:, None, :] + _EPS_OFFSETS[None]  # [n, 27, 3]
-    ok = np.all(nu >= 0, -1) & np.all(nu < (1 << C.COORD_BITS), -1)
-    nk = np.where(ok, bbits[:, None] | C.morton_encode_np(np.maximum(nu, 0)),
-                  sent)
+    code = m & C.KEY_MASK
+    nk = (m & ~C.KEY_MASK).reshape(n, 1, 1, 1)
+    ok = np.ones((n, 1, 1, 1), bool)
+    for axis, bits in enumerate(_AXIS_BITS):
+        a = code & bits
+        low = bits & -bits
+        part = np.stack([(a - low) & bits, a, ((a | ~bits) + low) & bits], 1)
+        valid = np.stack([a != 0, np.ones(n, bool), a != bits], 1)
+        shape = [n, 1, 1, 1]
+        shape[axis + 1] = 3
+        nk = nk | part.reshape(shape)
+        ok = ok & valid.reshape(shape)
+    nk = np.where(ok, nk, sent).reshape(n, 27)   # _EPS_OFFSETS' order
     ii = np.minimum(np.searchsorted(m, nk.reshape(-1)), max(n - 1, 0)) \
         .astype(np.int32).reshape(nk.shape)
-    ff = (m[ii] == nk) & (nk != sent) if n else np.zeros_like(ok)
+    ff = (m[ii] == nk) & (nk != sent) if n else np.zeros(nk.shape, bool)
     idx = np.zeros((cap, 27), np.int32)
     found = np.zeros((cap, 27), bool)
     idx[:n] = ii
     found[:n] = ff
     return keys, idx, found
+
+
+def host_root_neighbors(keys_np, levels_down, cap, level_caps=None):
+    """Host (numpy) twin of the pyramid root: downsample ``levels_down``
+    octree levels (truncating at every level's cap exactly as the device
+    pyramid does), pad to ``cap`` and build the 27-neighbourhood self map
+    (``host_self_map``).  Returns (keys, idx int32, found bool)."""
+    if level_caps is None:
+        level_caps = [cap] * levels_down
+    m = host_levels(keys_np, level_caps[:levels_down])[-1]
+    return host_self_map(m[:cap], cap)
 
 
 def transpose_cover_table():
