@@ -146,7 +146,8 @@ class Codec:
     @contextlib.contextmanager
     def _stage(self, name):
         """A stage of a frame: a tracer span (``utils/profiling.py``), and
-        with ``profile`` its synchronized wall seconds in stage_times."""
+        with ``profile`` its synchronized wall seconds in stage_times (the
+        ``sync=True`` spans inside synchronize too)."""
         with profiling.span(name):
             if not self.profile:
                 yield
@@ -154,7 +155,8 @@ class Codec:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             t0 = time.perf_counter()
-            yield
+            with profiling.synchronizing(self.device):
+                yield
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.stage_times[name] = self.stage_times.get(name, 0.0) \

@@ -10,8 +10,13 @@ prune to the transmitted k (the finest level in grandparent layout,
 
 ``region_candidates`` replaces the 8-child expansion by every child
 position the kernel-5 transpose reaches: the covered children of the
-27-dilated parent set (the candidate-set ablation); it runs every level
-outside grandparent layout.  ``ext_keep``/``emit_last_logits`` are the
+27-dilated parent set (the candidate-set ablation, and the released
+model's decoder); it runs every level outside grandparent layout.  Each
+level's dilation and maps are the tracer's spans ``gs.region.dilate`` and
+``gs.region.maps``; while it records, the counters ``gs.region.dilated``
+(distinct dilated parents), ``.clipped`` (those past the
+``region_dilate_factor`` cap), ``.covered`` (candidates the heads score)
+and ``.kept``.  ``ext_keep``/``emit_last_logits`` are the
 coded-occupancy hooks of ``codec/refine.py``; ``oracle_gt``/``oracle_levels``
 the diagnostic one of ``diag_geometry.py``, which prunes a level by GT
 membership instead of the learned ranking.
@@ -32,6 +37,7 @@ from ..ops import family as F
 from ..ops.sparse import (SparseTensor, compact, dilate_keys, take_rows,
                           upsample_children_keys)
 from ..ops.topk import topk_mask
+from ..utils import profiling
 from .gdn import GDN
 from .layers import FamilyConv, FamilyDownConv, FamilyTransposeUp, PointwiseConv
 
@@ -330,17 +336,28 @@ class SparseSynthesisTransform(nn.Module):
                 # candidates: every child position the kernel-5 transpose
                 # reaches = the covered children of the 27-dilated parents
                 dcap = int(self.region_dilate_factor * parent_keys.shape[0])
-                d_keys = dilate_keys(parent_keys, dcap)
-                d_nbr = F.root_neighbors(d_keys)
-                cross = F.cross_neighbors(d_keys, parent_keys)
-                child_keys = upsample_children_keys(d_keys)
-                cf = F.child_family(d_keys, nbr=d_nbr)
+                traced = profiling.enabled()
+                with profiling.span("gs.region.dilate", sync=True):
+                    d_keys = dilate_keys(parent_keys, dcap, total=traced)
+                if traced:
+                    d_keys, n_dilated = d_keys
+                    n_dilated = int(n_dilated)
+                    profiling.count("gs.region.dilated", n_dilated)
+                    profiling.count("gs.region.clipped",
+                                    max(n_dilated - dcap, 0))
+                with profiling.span("gs.region.maps", sync=True):
+                    d_nbr = F.root_neighbors(d_keys)
+                    cross = F.cross_neighbors(d_keys, parent_keys)
+                    child_keys = upsample_children_keys(d_keys)
+                    cf = F.child_family(d_keys, nbr=d_nbr)
+                    cover = cross[1].to(torch.float32) @ torch.as_tensor(
+                        F.transpose_cover_table(), dtype=torch.float32,
+                        device=dev)
+                    cvalid = C.key_is_valid(child_keys) \
+                        & (cover > 0).reshape(-1)
+                if traced:
+                    profiling.count("gs.region.covered", int(cvalid.sum()))
                 cfeats = transpose(cross, x.feats, x.valid, self_map=False)
-                cover = cross[1].to(torch.float32) @ torch.as_tensor(
-                    F.transpose_cover_table(), dtype=torch.float32,
-                    device=dev)
-                cvalid = C.key_is_valid(child_keys) \
-                    & (cover > 0).reshape(-1)
                 parent_nbr_next = d_nbr
                 n_parents = d_keys.shape[0]
             else:
@@ -368,6 +385,8 @@ class SparseSynthesisTransform(nn.Module):
                 keep = topk_mask(cand, self._prune_logits(
                     lvl, cand.keys, logits.detach(), cvalid, oracle_gt,
                     oracle_levels), self._k_eff(k, lvl)) & cvalid
+            if self.region_candidates and profiling.enabled():
+                profiling.count("gs.region.kept", int(keep.sum()))
             # prune with parent links carried through the compaction
             pk, pf, ppar, pslot = compact(child_keys, keep, cand.feats,
                                           cf.point_parent, cf.point_slot,

@@ -403,16 +403,21 @@ def concat(tensors, capacity):
                         stride=tensors[0].stride)
 
 
-def _dedup_sorted(cand, capacity):
+def _dedup_sorted(cand, capacity, total=False):
     """Sorted, duplicate-free, SENTINEL-padded keys of ``cand``, clipped to
     ``capacity``: sort, mark repeats SENTINEL, sort again (torch.sort is
-    the plain implementation here; these run only in region mode)."""
+    the plain implementation here; these run only in region mode).  With
+    ``total``, also the count of distinct valid keys before the clip (a
+    0-d device tensor)."""
     cand = torch.sort(cand).values
     dup = torch.zeros_like(cand, dtype=torch.bool)
     dup[1:] = cand[1:] == cand[:-1]
     cand = torch.where(dup & C.key_is_valid(cand), C.sentinel_like(cand),
                        cand)
-    return torch.sort(cand).values[:capacity]
+    out = torch.sort(cand).values[:capacity]
+    if total:
+        return out, C.key_is_valid(cand).sum()
+    return out
 
 
 def expand_region_keys(keys, region_offsets, capacity):
@@ -425,13 +430,16 @@ def expand_region_keys(keys, region_offsets, capacity):
     return _dedup_sorted(cand, capacity)
 
 
-def dilate_keys(keys, capacity):
+def dilate_keys(keys, capacity, total=False):
     """27-neighbourhood dilation of a sorted key set, dedup({u + e,
     |e| <= 1}); the candidate parents of region-candidate g_s.  Sorted,
-    SENTINEL-padded, clipped to ``capacity``."""
-    cand = torch.stack([C.shift_units(keys, tuple(int(v) for v in d))[0]
-                        for d in C.kernel_offsets(3)], dim=1).reshape(-1)
-    return _dedup_sorted(cand, capacity)
+    SENTINEL-padded, clipped to ``capacity``; with ``total`` also the
+    number of distinct dilated keys before the clip.  The 27 neighbours
+    come from one [P, 27, 3] pass: a shift per neighbour would launch
+    some 1,900 int64 kernels a level and bind the decode to the host."""
+    from .family import _neighbor_queries  # family imports this module
+    return _dedup_sorted(_neighbor_queries(keys)[0].reshape(-1), capacity,
+                         total)
 
 
 _vox_lib = None

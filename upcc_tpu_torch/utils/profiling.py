@@ -18,7 +18,10 @@ in the same trace as the device operations.  A new recording, or the
 first span of a new profiler session, starts an empty record:
 ``last_record()`` holds the last traced window.  Off, ``span`` is one flag
 check returning a shared null context: no ``record_function``, no
-allocation, no device synchronization.
+allocation, no device synchronization.  A span opened with ``sync=True``
+inside ``synchronizing(device)`` (``Codec.profile``'s stages) synchronizes
+the device at both ends while it records, so that its host length holds
+the device work it enqueued.
 
 ``device_trace()`` records a ``torch.profiler`` trace (CPU activity, and
 CUDA activity where a card is present) and writes it as a Chrome trace,
@@ -61,6 +64,7 @@ _current = contextvars.ContextVar("upcc_span", default=None)  # (id, unit)
 _span_ids = itertools.count(1)
 _frame_ids = itertools.count(1)
 _NEW_FRAME = object()
+_sync_device = contextvars.ContextVar("upcc_sync_device", default=None)
 _lock = threading.Lock()
 _recordings = 0   # open recording() blocks
 _live = False     # the record belongs to the session under way
@@ -92,10 +96,11 @@ _NULL = _Null()
 
 class _Span:
     __slots__ = ("name", "unit", "id", "parent", "token", "rf", "start",
-                 "record", "dropped")
+                 "record", "dropped", "sync")
 
-    def __init__(self, name, unit):
+    def __init__(self, name, unit, sync=None):
         self.name, self.unit, self.dropped = name, unit, False
+        self.sync = sync
 
     def __enter__(self):
         if not _live:
@@ -113,10 +118,14 @@ class _Span:
         if _autograd_profiler._is_profiler_enabled:
             self.rf = torch.profiler.record_function(PREFIX + self.name)
             self.rf.__enter__()
+        if self.sync is not None:
+            torch.cuda.synchronize(self.sync)
         self.start = time.time_ns()
         return self
 
     def __exit__(self, *exc):
+        if self.sync is not None:
+            torch.cuda.synchronize(self.sync)
         end = time.time_ns()
         if self.rf is not None:
             self.rf.__exit__(*exc)
@@ -137,15 +146,29 @@ def enabled():
     return bool(_recordings or _autograd_profiler._is_profiler_enabled)
 
 
-def span(name, unit=None):
+def span(name, unit=None, sync=False):
     """A span of the program's work, as a context manager.  ``unit``: the
     id of the unit this span is the root of; by default the span belongs
-    to the enclosing span's unit."""
+    to the enclosing span's unit.  ``sync``: synchronize the device of the
+    enclosing ``synchronizing`` block at both ends."""
     global _live
     if _recordings or _autograd_profiler._is_profiler_enabled:
-        return _Span(name, unit)
+        dev = _sync_device.get() if sync else None
+        return _Span(name, unit,
+                     dev if dev is not None and dev.type == "cuda" else None)
     _live = False
     return _NULL
+
+
+@contextlib.contextmanager
+def synchronizing(device):
+    """Spans opened with ``sync=True`` inside the block synchronize
+    ``device`` at both ends while they record."""
+    token = _sync_device.set(device)
+    try:
+        yield
+    finally:
+        _sync_device.reset(token)
 
 
 def frame(name):
