@@ -178,6 +178,10 @@ class Codec:
             "z": build_cdf_tables(bn.numpy_params(), bn.channels),
             "y": gaussian.build_cdf_tables(),
         }
+        # 8-bit color level -> f32 by lookup: CUDA's division by a host
+        # scalar multiplies by its reciprocal, one ulp off numpy's quotient
+        self._color_levels = self._dev(
+            np.arange(256, dtype=np.float32) / 255.0)
         self._replicas = {self.device: self}
         for dev in self.devices or ():
             if dev not in self._replicas:
@@ -587,7 +591,8 @@ class Codec:
         blocks, scaling_factor = bitstream.read_container(data)
         outs = self._map_groups(lambda c, blks: c._decompress_group(blks),
                                 _chunk_decode_groups(blocks))
-        x = np.concatenate(outs, axis=0)
+        # each group's cloud is a fresh array, so one group is the frame
+        x = outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
         if scaling_factor != 1.0:
             x[:, :3] = x[:, :3] * scaling_factor
         # frame-level signaled color corrections ride the first block: the
@@ -764,16 +769,17 @@ class Codec:
             return self._fetch_points(blks, st)
 
     def _fetch_points(self, blks, st):
-        """Assemble the [N, 6] host cloud from the decoded sparse tensor."""
+        """Assemble the [N, 6] cloud on the device from the decoded sparse
+        tensor and copy it to the host once."""
         # the final compaction leaves the valid rows in a contiguous prefix
         n = int(st.valid.sum())
-        keys = st.keys[:n].cpu().numpy()
+        keys = st.keys[:n]
+        bu = torch.clamp_max(keys >> C.BATCH_SHIFT, len(blks) - 1)
+        origins = self._dev(np.asarray([b["origin"] for b in blks], np.int32))
         colors8 = torch.clamp(torch.round(st.feats[:n].float() * 255.0),
-                              0, 255).to(torch.uint8).cpu().numpy()
-        g = len(blks)
-        bu = np.minimum(keys >> C.BATCH_SHIFT, g - 1)
-        units = C.morton_decode_np(keys & C.KEY_MASK)
-        origins = np.asarray([b["origin"] for b in blks], np.int32)
-        xyz = units + origins[bu]
-        colors = colors8.astype(np.float32) / 255.0
-        return np.concatenate([xyz.astype(np.float32), colors], axis=1)
+                              0, 255).to(torch.uint8)
+        out = torch.empty((n, 6), dtype=torch.float32, device=self.device)
+        out[:, :3] = C.morton_decode(keys & C.KEY_MASK) + origins[bu]
+        out[:, 3:] = self._color_levels[colors8.long()]
+        profiling.count("dec.fetch.d2h_bytes", out.nbytes)
+        return out.cpu().numpy()
