@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (``upcc_tpu_torch``) on one GPU.
+"""On-card gate of the PyTorch/CUDA port (``upcc_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py            # the whole check, one card
     python3 chip_smoke.py --kernels  # build + kernel checks only
@@ -9,54 +9,57 @@
     python3 chip_smoke.py --bench    # build + phase 18 only
     python3 chip_smoke.py --eval-all # build + the driver on 7 sequences
 
-Phases, each printing its lines; any failure raises and exits non-zero:
+It checks; it does not time kernels.  Kernel times, rooflines and the
+device's busy share come from the benchmark (``python3 -m benchmark.run
+--workload <cell> --seed <n> --seconds 51 --trace 1``).  Launches and weight
+preparations are read from the tracer's counters ``kernel.<name>`` and
+``taps.prepared`` inside ``profiling.recording()``, summed over the frames
+or steps a gate spans.  Phases, each printing its lines; any failure raises
+and exits non-zero:
   1. the card's name and power limit (nvidia-smi); build the CUDA kernels
-     (one nvcc per source, in parallel) and print the build seconds;
+     (one nvcc per source, in parallel), print the build seconds and
+     ptxas's registers, shared memory and spills per kernel entry;
   2. every kernel against its plain PyTorch version on edge-case inputs:
      K1 tap_gemm through its prepared weights at each caller layout, held
      against the dense plain version on the dense stack (f32 tolerance
      below; ragged and short row counts, unread taps, nothing read, indices
      beyond the source, and rows placed elsewhere in a larger call being
-     bit-equal), K2 topk_mask in both of its modes (resident and
-     streaming, on the same inputs, and streaming by shape at 40M
-     candidates) and K3 compact (bit for bit: empty input and output, none
+     bit-equal), K1w tap_wgrad (the same tolerance, two calls bit-equal,
+     the second building its row lists again) and K1 on mirrored plans
+     against the plain dgrad, K2 topk_mask in both of its modes (resident
+     and streaming, on the same inputs, and streaming by shape at 40M
+     candidates), K3 compact (bit for bit: empty input and output, none
      and all kept, m past n, 9 payloads in two launches, 1-, 3- and
      1200-byte rows, payloads at odd byte offsets, and a run of calls on
      one stream with n and payload counts growing and shrinking), P1
-     tile_tapconv in both operand
-     types (tolerances at P1_TOL) and P2 window_gather_sum in its slab mode
-     (8- and 4-float slabs, ragged widths) and its streaming mode (exact,
-     bit for bit);
+     tile_tapconv in both operand types (tolerances at P1_TOL) and P2
+     window_gather_sum in its slab mode (8- and 4-float slabs, ragged
+     widths) and its streaming mode (exact, bit for bit);
   3. the codec's main path at full width: the committed epoch-193 flagship
      weights, the vox10-scale synthetic frame (760k points), compress ->
-     decompress at q=(0.5, 0.5), block 1024 (once recording every kernel
-     call's inputs, once timed with the launch counts zeroed just before),
-     then block 512 (an 8-block group); checks encoder/decoder bit-exactness,
-     the decoded count against the transmitted k, the launches per frame
-     (K1 19, K2 3, K3 3; 61 / 0 / 9 on the coded path) and that no conv
-     prepared its weights during the frame (update() did);
+     decompress at q=(0.5, 0.5), block 1024 (once with the debug record,
+     once recorded by the tracer, once recording every kernel call's
+     inputs), then block 512 (an 8-block group); gated: encoder/decoder
+     bit-exact, the decoded count equal to the transmitted k, the launches
+     per frame (K1 19, K2 3, K3 3; 61 / 0 / 9 on the coded path) and no
+     conv preparing its weights during the frame (update() did);
   4. every recorded main-path kernel call against its plain version (K1:
      the prepared weights the codec used against the dense stack built from
-     the layer's parameter; K2 in both modes), timed (kernel, plain, one
-     library call or call sequence doing the same work as yardstick) beside
-     its roofline bound; one call of K2 and of K3 under torch.profiler,
-     whose device operations (at most K2_MAX_DEVICE_OPS and
-     K3_MAX_DEVICE_OPS) are listed;
+     the layer's parameter; K2 in both modes; K3 bit for bit); each K2
+     and K3 call under torch.profiler, gated to at most K2_MAX_DEVICE_OPS
+     and K3_MAX_DEVICE_OPS device operations;
   5. the two probe entry points (upcc_tpu_torch.probes) at their published
-     shapes, launch counts zeroed just before; then P1 and P2 on the same
-     full arrays against their plain versions, timed beside a library call
-     and the bound (P2 in each of its modes, and with a conflict-free
-     index);
+     shapes, each launching its kernel; then P1 and P2 on the same full
+     arrays against their plain versions (P2 in each of its modes);
   6. the lossless path at full width: compress(geom="coded") -> decompress
      at block 1024 and block 512; every stage's context bins equal on both
-     sides, the decoded voxel set equal to the input's, K1 and K3 launched;
-     stage times, bpp with the occupancy streams' share, peak memory; K3
-     on one coded frame's 9 recorded calls, checked and timed as in phase
-     4 without the profiler (`[k3 coded]`);
+     sides, the decoded voxel set equal to the input's, deterministic,
+     launches 61 / 0 / 9 a frame; K3 on one coded frame's 9 recorded calls
+     against its plain version (``[k3 coded]``);
   7. compress_multi at three q's and compress_stream / decompress_stream
-     at depth 2 over three frames, byte-identical to the sequential calls
-     and timed beside them; refit_colors (affine + residual layer) with
-     decompress(new container) equal to the returned reconstruction;
+     at depth 2 over three frames, byte-identical to the sequential calls;
+     refit_colors (affine + residual layer) with decompress(new container)
+     equal to the returned reconstruction;
   8. ``[jax stream]``: the committed stream written by the JAX package
      (tests/fixtures/jax_stream_flagship.upcc, made by
      tests/fixtures/make_jax_stream.py) decoded by the port on the card
@@ -68,11 +71,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   9. ``[region]``: region-candidate g_s at the widths of
      configs/ablation/abl_region5.yaml on a seeded init (no committed
      weights), the same frame at q=(0.5, 0.5), block 1024: encoder/decoder
-     bit-exact, decoded count = sum of k[2], no conv preparing weights
-     during the frame, launches per frame 19/3/3; every K1, K2 and K3
-     call of the region decode against its plain version and timed;
-     candidate counts per level, dec.synthesis ms, peak memory and one
-     decode's device time by operation (torch.profiler);
+     bit-exact, deterministic, decoded count = sum of k[2], no conv
+     preparing weights during the frame, launches per frame 19/3/3; every
+     K1, K2 and K3 call of the region decode against its plain version;
+     candidate counts per level and peak memory printed;
  10. ``[eval]``: the evaluation driver (upcc_tpu_torch.evaluate) on the
      flagship for longdress (rebuilt from its seed) at block 1024 and
      q = (0, 0), (0.5, 0.5), (1, 1), color refit on, native PCQM at
@@ -84,33 +86,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
  11. ``[train]``: the flagship's training step at full width (seeded init)
      on train frame 0 of make_synth (scan_like_cloud, default_rng(0), 760k
      points) cut into 128^3 cubes, the packer's fullest batch of 8 cubes
-     at the trainer's auto capacity (131,072 on this set): median
-     step ms of 5 after 2 warm-up steps, peak memory, the
-     launches and weight preparations per step (gated: K1 18 forward + 17
-     dgrad, K1w 18, 35 preparations); every K1 dgrad (K1 on a mirrored
-     plan) and K1w call of one recorded step against its plain version
-     (K1w twice bit-equal), timed with its bound and a library call, K1w
-     also under its other choices (WGRAD_CHOICES), with each call's ok
-     density and the time to build its map's row lists, and the step's
-     18 K1w calls replayed in order under each choice; the
-     K3 backward's rank gathers timed; one step under torch.profiler
-     (device busy, K1 forward / dgrad / K1w ms and launches); whole-step
-     gradients against the plain autograd path on 2 cubes (tolerances at
-     GRAD_TOL); on a fixed batch over 20 steps, the training loss from a
-     fresh seeded init and the RD loss from the committed weights (both
-     gated to fall); a Training run
-     of 3 steps with validation through real bitstreams at q = (1, 1)
-     (val.csv) and a resume from its checkpoint.  Phase 2 also holds K1w
-     against its plain version on edge cases (bit-equal twice) and K1 on
-     mirrored plans against the plain dgrad;
+     at the trainer's auto capacity (131,072 on this set), gated: finite
+     loss parts, the launches and weight preparations per step over
+     TRAIN_TIMED_STEPS steps (K1 18 forward + 17 dgrad, K1w 18, 35
+     preparations); every K1 dgrad (K1 on a mirrored plan) and K1w call of
+     one recorded step against its plain version (K1w twice bit-equal);
+     whole-step gradients against the plain autograd path on 2 cubes
+     (tolerances at GRAD_TOL); on a fixed batch over 20 steps, the training
+     loss from a fresh seeded init and the RD loss from the committed
+     weights (both gated to fall); a Training run of 3 steps with
+     validation through real bitstreams at q = (1, 1) (val.csv) and a
+     resume from its checkpoint;
  12. ``[region train]``: region-candidate training at abl_region5's widths
      (seeded init) on train frame 0 cut into 64^3 cubes, the packer's
-     fullest batch of 4 at the trainer's auto capacity: median step ms of
-     5, peak memory, K1 forward / dgrad and K1w launches a step, every K1
-     dgrad and K1w call of a recorded step within 1e-3 x max|plain| (the
-     cross maps' calls timed), the int64 key arithmetic's device ms
-     (reported), whole-step gradients against plain autograd (GRAD_TOL),
-     the training loss falling on a fixed batch (REGION_FALL_RATIO);
+     fullest batch of 4 at the trainer's auto capacity: K1 forward / dgrad
+     and K1w launches a step, every K1 dgrad and K1w call of a recorded
+     step within 1e-3 x max|plain| (at least 3 of each on cross maps),
+     whole-step gradients against plain autograd (GRAD_TOL), the training
+     loss falling on a fixed batch (REGION_FALL_RATIO);
  13. ``[parallel dp]`` at flagship widths on [train]'s batch A and the
      next fullest B, gated where each step clips (its gradients before
      Adam, its clip norm) and on the parameters after the update, each
@@ -120,8 +113,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      world size 1 on NCCL against the sequential step; two gloo ranks
      sharing cuda:0 (NCCL refuses two ranks on one card) on A and B
      against one in-process update on the mean of their gradients, and
-     bit-identical state_dicts after 3 steps; step ms on each rank (two
-     processes on one card, not a multi-GPU speed);
+     bit-identical state_dicts after 3 steps;
  14. ``[parallel 2d]``: the 1x2 sharded step on the same two gloo ranks
      against the sequential step on A, each rank's parameter and Adam
      bytes;
@@ -142,29 +134,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      configuration decodes sum k[2] points, K1/K2/K3 launch as often as in
      the non-oracle forward, and every K2 call at an oracle level (all
      logits +-1, the kept set decided by the tie-fill by position) equals
-     topk_mask_plain bit for bit; printed: forward ms (median of
-     ORACLE_TIMED), peak memory, each level's ranking precision and D1 per
-     configuration;
+     topk_mask_plain bit for bit; printed: peak memory, each level's
+     ranking precision and D1 per configuration;
  17. ``[twins]``: the four native host libraries (rANS, octree, occupancy,
      voxelize) loaded; on the JAX fixture's frame (6,000 points, q = (0.5,
      0.5), block 128) in geom="topk" and "coded", with every library
      forced off the containers are byte-identical and decode to the same
-     points through the Python twins; each coder's seconds native and
-     twin.  Phases 16-17 print their seconds;
+     points through the Python twins.  Phases 16-17 print their seconds;
  18. ``[bench]``: ``upcc_tpu_torch.bench`` in process, the root bench.py's
      protocol in full (``--bench`` the same): its lines
      under ``[bench]`` (the three frames/s values, rep times, bpp, the
      vox11 frame's encode and decode groups with blocks, points, k per
      level and peak memory, launches per frame) and its gates (bit-exact
-     warm-ups, decoded = sum k[2] on every timed frame, the stream's
-     containers byte-identical to compress(), K1/K2/K3 in every frame,
-     every K2 and K3 call of the vox11 warm-up bit-equal to its plain
-     version); then every recorded vox11 call of K1, K2 and K3 against its
-     plain version and timed at those shapes (``[k1 vox11]`` ...); the
-     graft entry's training-mode forward (upcc_tpu_torch.graft_entry) at
-     the flagship's widths: finite, launches GRAFT_LAUNCHES; and spawn of
-     one rank more than there are cards refused before any process
-     starts.  Prints its seconds.
+     warm-ups, decoded = sum k[2] and no weight preparation on every timed
+     frame, the stream's containers byte-identical to compress(), K1/K2/K3
+     in every frame, every K2 and K3 call of the vox11 warm-up bit-equal
+     to its plain version); then every recorded vox11 call of K1, K2 and
+     K3 against its plain version (``[k1 vox11]`` ...); the graft entry's
+     training-mode forward (upcc_tpu_torch.graft_entry) at the flagship's
+     widths: finite, launches GRAFT_LAUNCHES; and spawn of one rank more
+     than there are cards refused before any process starts.  Prints its
+     seconds.
 ``--eval-all`` runs phase 10's driver on the seven other sequences of the
 committed test.csv (loot, soldier, redandblack at vox10; the four Owlii
 sequences at vox11, block 512) at the same three q's: 21 rows, each beside
@@ -172,8 +162,9 @@ the committed row, those outside the CPU tests' tolerance (1% bpp, 0.1 dB)
 marked, then EVAL_NO_RESID's rows again without the residual color layer
 (the witness of why the marked rows differ); about 14 minutes of host
 metrics, so not in the default run.
-The last three lines are the nvidia-smi line, the kernels JSON line and
-the result line {"ok": true, "device": {...}}.
+The whole run also asserts that each of the six kernels launched on some
+path.  The last two lines are the nvidia-smi line and the result line
+{"ok": true, "device": {...}}.
 
 K1 tolerance: the kernel and the plain version both multiply the same
 bf16-rounded operands exactly and sum in f32 in different orders, so
@@ -212,8 +203,8 @@ from upcc_tpu_torch.ops.probe_kernels import (WindowPlan, tile_tapconv,
 from upcc_tpu_torch.ops.sparse import SparseTensor, compact, compact_plain
 from upcc_tpu_torch.ops.topk import (topk_mask, topk_mask_plain, topk_plan,
                                      topk_smem)
-from upcc_tpu_torch.probes import (PEAK_BF16, PEAK_BYTES, PEAK_TF32,
-                                   micro_gather, window_gather)
+from upcc_tpu_torch.probes import micro_gather, window_gather
+from upcc_tpu_torch.utils import profiling
 from upcc_tpu_torch.weights import (ABL_REGION5_CONFIG, FLAGSHIP_CONFIG,
                                     load_weights)
 
@@ -224,28 +215,7 @@ JAX_STREAM = os.path.join(HERE, "tests", "fixtures",
                           "jax_stream_flagship.upcc")
 JAX_DECODED = os.path.join(HERE, "tests", "fixtures",
                            "jax_stream_flagship_decoded.npy")
-REPLACES = {
-    "tap_gemm": ("upcc_tpu_torch/csrc/tap_gemm.cu",
-                 "upcc_tpu/ops/family.py:610"),
-    "topk_mask": ("upcc_tpu_torch/csrc/topk.cu", "upcc_tpu/ops/topk.py:68"),
-    "compact": ("upcc_tpu_torch/csrc/compact.cu",
-                "upcc_tpu/ops/sparse.py:81"),
-    "tile_tapconv": ("upcc_tpu_torch/csrc/tile_tapconv.cu",
-                     "scripts/micro_gather.py:80"),
-    "window_gather_sum": ("upcc_tpu_torch/csrc/window_gather.cu",
-                          "scripts/prof_pallas_gather.py:37"),
-    "tap_wgrad": ("upcc_tpu_torch/csrc/tap_wgrad.cu",
-                  "upcc_tpu/ops/family.py:610"),
-}
 
-
-def _device_us(evt):
-    """An averaged profiler event's own device time in us (the attribute's
-    name differs across torch versions)."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return getattr(evt, name)
-    return 0.0
 
 def nvidia_smi():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -254,23 +224,10 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time(fn, reps):
-    """Mean ms per call over ``reps`` calls after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound_ms(nbytes, flops, peak=PEAK_BF16):
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
-    return max(tb, tf), ("bytes" if tb >= tf else "operations")
+def launch_counts(rec, names):
+    """{kernel: launches} in a tracer record, summed over its units (the
+    frames or steps a gate spans)."""
+    return {name: rec.total("kernel." + name) for name in names}
 
 
 def device_ops(fn):
@@ -289,19 +246,6 @@ def device_ops(fn):
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA),
                   key=lambda op: op[1])
-
-
-def print_ops(tag, ops):
-    """One line per device operation: its time and the gap before it."""
-    t0 = ops[0][1] if ops else 0
-    end = t0
-    for i, (name, start, dur) in enumerate(ops):
-        print(f"[{tag}] op {i}: start +{start - t0:.1f} us, {dur:.1f} us, "
-              f"gap {max(0.0, start - end):.1f} us: {name[:70]}", flush=True)
-        end = max(end, start + dur)
-    busy = sum(op[2] for op in ops)
-    print(f"[{tag}] {len(ops)} device ops, busy {busy:.1f} us over a span of "
-          f"{end - t0:.1f} us", flush=True)
 
 
 # -- phase 2: kernels on edge-case inputs ------------------------------------
@@ -399,9 +343,9 @@ def check_tap_gemm(gen):
 
 def check_tap_wgrad(gen):
     """K1w against its plain version (the listed blocks of the dense
-    gradient) per call shape, under each of its choices (WGRAD_CHOICES),
-    the kept one twice bit-equal; and K1 on a mirrored plan over a self map
-    against the plain dgrad (a scatter)."""
+    gradient) per call shape, twice bit-equal (the second call building
+    its row lists again); and K1 on a mirrored plan over a self map against
+    the plain dgrad (a scatter)."""
     dev = "cuda"
     bf = torch.bfloat16
 
@@ -419,14 +363,11 @@ def check_tap_wgrad(gen):
                            device=dev).to(bf)
         ref = plan.blocks_of(F.tap_wgrad_plain(flat, idx, ok, dacc))
         tol = 1e-3 * float(ref.abs().max()) + 1e-5
-        errs = {}
-        for choice, kw in WGRAD_CHOICES.items():
-            got = F.tap_wgrad(flat, idx, ok, dacc, plan, **kw)
-            errs[choice] = float((got - ref).abs().max())
         got = F.tap_wgrad(flat, idx, ok, dacc, plan)
         drop_lists(ok)  # the second call builds its row lists again
         again = F.tap_wgrad(flat, idx, ok, dacc, plan)
         torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
         same = torch.equal(got.view(torch.int32), again.view(torch.int32))
         tiles = plan.wgrad_tiles(plan.n_col > 1).cpu().numpy()
         chunk, splits = F.wgrad_splits(rows, len(tiles),
@@ -435,10 +376,10 @@ def check_tap_wgrad(gen):
               f"K_out={plan.k_out} BN={plan.bn} listed_blocks="
               f"{plan.n_blocks} tiles={len(tiles)} (single-column "
               f"{int((tiles[:, 2] == 1).sum())}) splits={splits}x{chunk} "
-              f"ok density {float(ok.float().mean()):.3f} max_abs_err "
-              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-              + f" tol={tol:.3e} two calls bit-equal={same}", flush=True)
-        assert max(errs.values()) <= tol, \
+              f"ok density {float(ok.float().mean()):.3f} max_abs_err="
+              f"{err:.3e} tol={tol:.3e} two calls bit-equal={same}",
+              flush=True)
+        assert err <= tol, \
             f"tap_wgrad {name} disagrees with its plain version"
         assert same, f"tap_wgrad {name}: two calls differ"
         return got, plan
@@ -749,47 +690,14 @@ def check_window_gather(gen):
                 "plain version"
 
 
-def bank_wavefronts(idx, width):
-    """Mean shared-memory wavefronts per quarter warp of P2's slab-mode
-    gathers with these indices, counted from the indices (a model of the
-    banks, not a hardware counter): at width 8 a quarter warp (8 lanes x
-    16 bytes) reads 4 output rows' source rows, 32 bytes each, so source
-    row r lies in bank group r % 4; distinct rows of one group serialize.
-    At width 4 a quarter warp reads 8 rows of 16 bytes, group r % 8."""
-    per = 4 if width == 8 else 8
-    rows = idx.clamp(0, idx.shape[-1] - 1).long().reshape(-1, per)
-    rows = rows.sort(1).values
-    new = torch.ones_like(rows, dtype=torch.float32)
-    new[:, 1:] = (rows[:, 1:] != rows[:, :-1]).float()
-    groups = torch.zeros((rows.shape[0], per), device=rows.device)
-    groups.scatter_add_(1, rows % per, new)
-    return float(groups.amax(1).mean())
-
-
 # -- phase 4: recorded main-path calls ---------------------------------------
 
-def measure_recorded(record, layer_of, tag="main", profile=True):
-    """Every recorded call against its plain version, timed beside the
-    plain version, the library yardstick and the bound.  layer_of:
-    id(prepared plan) -> (layer, call shape) it was made for.  With
-    ``profile``, one call of K2 and each K3 call under torch.profiler
-    (device operations gated)."""
-    rows = {}
-
-    def add(name, err, t_k, t_p, t_l, nbytes, flops):
-        r = rows.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
-                                   "plain_ms": 0.0, "library_ms": 0.0,
-                                   "bound_ms": 0.0, "t_bytes": 0.0,
-                                   "t_ops": 0.0})
-        b, _ = bound_ms(nbytes, flops)
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += t_k
-        r["plain_ms"] += t_p
-        r["library_ms"] += t_l
-        r["bound_ms"] += b
-        r["t_bytes"] += nbytes / PEAK_BYTES * 1e3
-        r["t_ops"] += flops / PEAK_BF16 * 1e3
-
+def check_recorded(record, layer_of, tag="main", profile=True):
+    """Every recorded call of K1, K2 and K3 against its plain version.
+    layer_of: id(prepared plan) -> (layer, call shape) it was made for.
+    With ``profile``, each K2 and K3 call under torch.profiler (device
+    operations gated)."""
+    worst = 0.0
     for flat, idx, ok, plan in record.get("tap_gemm", []):
         # the layer's dense stack from its parameter, not via the plan
         layer, kind = layer_of[id(plan)]
@@ -801,70 +709,35 @@ def measure_recorded(record, layer_of, tag="main", profile=True):
         tol = 1e-3 * float(ref.abs().max()) + 1e-5
         assert err <= tol, "tap_gemm disagrees with its plain version on " \
             f"a {tag}-path call"
-        del got, ref
-        t_k = cuda_time(lambda: F.tap_gemm(flat, idx, ok, plan), 5)
-        t_p = cuda_time(lambda: F.tap_gemm_plain(flat, idx, ok, w), 2)
-        rows_, taps = idx.shape
-        stack = (flat[idx.clamp(max=flat.shape[0] - 1).long()]
-                 * ok[..., None].to(flat.dtype)).reshape(rows_, -1)
-        w2 = w.reshape(-1, w.shape[-1])
-        t_l = cuda_time(lambda: torch.matmul(stack, w2), 3)
-        del stack
-        nnz = (w != 0).reshape(taps, -1).sum(1).double()
-        flops = float(2 * (ok.sum(0).double() * nnz).sum())
-        nbytes = (flat.numel() * 2 + float(nnz.sum()) * 2 + idx.numel() * 4
-                  + ok.numel() + rows_ * w.shape[-1] * 4)
-        print(f"[k1 {tag}] rows={rows_} K_in={w.shape[1]} K_out={w.shape[2]} "
-              f"BN={plan.bn} listed_blocks={plan.n_blocks} "
-              f"err={err:.3e} kernel={t_k:.3f} ms plain={t_p:.3f} ms "
-              f"matmul={t_l:.3f} ms bound={bound_ms(nbytes, flops)[0]:.4f} ms",
-              flush=True)
-        add("tap_gemm", err, t_k, t_p, t_l, nbytes, flops)
+        worst = max(worst, err)
+        print(f"[k1 {tag}] rows={idx.shape[0]} K_in={w.shape[1]} "
+              f"K_out={w.shape[2]} BN={plan.bn} listed_blocks={plan.n_blocks}"
+              f" err={err:.3e} tol={tol:.3e}", flush=True)
+        del got, ref, w
+    print(f"[k1 {tag}] {len(record.get('tap_gemm', []))} calls, "
+          f"max_abs_err={worst:.3e}", flush=True)
 
     for keys, logits, k in record.get("topk_mask", []):
         st = SparseTensor(keys, logits[:, None])
         ref = topk_mask_plain(keys, logits, k)
         modes = topk_modes(keys, k)
-        t_modes = {}
         for mode, plan in modes.items():
             got = topk_mask(st, logits, k, plan=plan)
             assert torch.equal(got, ref), \
                 f"topk_mask ({mode}) differs on a {tag}-path call"
-            t_modes[mode] = cuda_time(
-                lambda: topk_mask(st, logits, k, plan=plan), 10)
-        t_k = cuda_time(lambda: topk_mask(st, logits, k), 10)
-        t_p = cuda_time(lambda: topk_mask_plain(keys, logits, k), 3)
-        b = C.key_batch(keys).long().clamp(0, k.shape[0] - 1)
-        b = torch.where(C.key_is_valid(keys), b, k.shape[0])
-        counts = torch.bincount(b, minlength=k.shape[0] + 1)[:k.shape[0]]
-        big = int(torch.argmax(counts))
-        seg = logits[b == big].contiguous()
-        kk = int(min(max(int(k[big]), 1), seg.shape[0]))
-        t_l = cuda_time(lambda: torch.topk(seg, kk), 10)
-        n = keys.shape[0]
-        nbytes = n * (8 + 4 + 1) + k.numel() * 4
-        ops = device_ops(lambda: topk_mask(st, logits, k)) if profile \
-            else None
+        line = (f"[k2 {tag}] n={keys.shape[0]} maxb={k.shape[0]} "
+                f"kept={int(ref.sum())} bit-equal in modes "
+                + ", ".join(f"{m} (grid={p.grid} per_block={p.per_block})"
+                            for m, p in modes.items()))
         if profile:
-            print_ops("k2 ops", ops)
-        plan = next(iter(modes.values()))
-        print(f"[k2 {tag}] n={n} maxb={k.shape[0]} kept={int(ref.sum())} "
-              f"kernel={t_k:.3f} ms ("
-              + ", ".join(f"{m} {t:.3f}" for m, t in t_modes.items())
-              + f"; grid={plan.grid} per_block={plan.per_block}) "
-              f"plain={t_p:.3f} ms torch.topk={t_l:.3f} ms "
-              f"bound={bound_ms(nbytes, 0)[0]:.4f} ms"
-              + (f" device ops per call={len(ops)}" if profile else ""),
-              flush=True)
-        if profile and K2_MAX_DEVICE_OPS is not None:
-            assert 0 < len(ops) <= K2_MAX_DEVICE_OPS, \
-                f"topk_mask ran {len(ops)} device operations in one call"
-        add("topk_mask", 0.0, t_k, t_p, t_l, nbytes, 0)
+            ops = device_ops(lambda: topk_mask(st, logits, k))
+            line += f"; device ops per call={len(ops)}"
+            if K2_MAX_DEVICE_OPS is not None:
+                assert 0 < len(ops) <= K2_MAX_DEVICE_OPS, \
+                    f"topk_mask ran {len(ops)} device operations in one call"
+        print(line, flush=True)
 
-    for t_k, t_p, t_l, nbytes in measure_compact(record.get("compact", []),
-                                                 tag, profile):
-        add("compact", 0.0, t_k, t_p, t_l, nbytes, 0)
-    return rows
+    check_compact_calls(record.get("compact", []), tag, profile)
 
 
 def payload_rows(keys, arrays):
@@ -881,82 +754,52 @@ def payload_rows(keys, arrays):
                      zip(rows, plan.units, plan.lanes))
 
 
-def measure_compact(calls, tag, profile=True):
-    """K3 on recorded calls: bit-equal to its plain version, timed beside
-    the plain version, the library doing the same work and the bound; with
+def check_compact_calls(calls, tag, profile=True):
+    """K3 on recorded calls: bit-equal to its plain version; with
     ``profile``, each call's device operations under torch.profiler (at
-    most K3_MAX_DEVICE_OPS).  Yields (kernel, plain, library ms, bytes).
-    The coded frame's calls are not profiled: late in a run, after the
-    probes, torch.profiler on the H100 host has delivered windows without
-    any device record (twice in five runs), which would fail the gate
-    for want of a measurement."""
-    tot = np.zeros(4)
+    most K3_MAX_DEVICE_OPS).  The coded frame's calls are not profiled:
+    late in a run, after the probes, torch.profiler on the H100 host has
+    delivered windows without any device record (twice in five runs),
+    which would fail the gate for want of a measurement."""
     for keys, keep, arrays, m in calls:
         got = compact(keys, keep, *arrays, out_capacity=m)
         ref = compact_plain(keys, keep, *arrays, out_capacity=m)
         assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
             f"compact differs on a recorded call ({tag})"
         del got, ref
-        t_k = cuda_time(lambda: compact(keys, keep, *arrays,
-                                        out_capacity=m), 10)
-        t_p = cuda_time(lambda: compact_plain(keys, keep, *arrays,
-                                              out_capacity=m), 3)
-        # the same work in library calls: keys and every payload, kept
-        # rows only, truncated at m
-        t_l = cuda_time(lambda: [a[keep][:m] for a in (keys, *arrays)], 10)
-        n = keys.shape[0]
-        row = sum(a[0].numel() * a.element_size() for a in arrays) if n else 0
-        # the function needs keep, the kept rows (up to m) and the m outputs
-        kept = min(int(keep.sum()), m)
-        nbytes = n + kept * (8 + row) + m * (8 + row)
-        b = bound_ms(nbytes, 0)[0]
-        line = (f"[k3 {tag}] n={n} m={m} kept={kept} payloads={len(arrays)} "
-                f"rows [{payload_rows(keys, arrays)}] kernel={t_k:.3f} ms "
-                f"plain={t_p:.3f} ms a[keep][:m] for keys and payloads="
-                f"{t_l:.3f} ms bound={b:.4f} ms")
+        line = (f"[k3 {tag}] n={keys.shape[0]} m={m} "
+                f"kept={min(int(keep.sum()), m)} payloads={len(arrays)} "
+                f"rows [{payload_rows(keys, arrays)}] bit-equal")
         if profile:
             ops = device_ops(lambda: compact(keys, keep, *arrays,
                                              out_capacity=m))
-            print_ops(f"k3 ops {tag}", ops)
-            line += (f" device ops per call={len(ops)} "
-                     f"({sum(op[2] for op in ops):.1f} us busy)")
+            line += f"; device ops per call={len(ops)}"
             if K3_MAX_DEVICE_OPS is not None:
                 assert 0 < len(ops) <= K3_MAX_DEVICE_OPS, \
                     f"compact ran {len(ops)} device operations in one call"
         print(line, flush=True)
-        tot += (t_k, t_p, t_l, b)
-        yield t_k, t_p, t_l, nbytes
-    print(f"[k3 {tag}] {len(calls)} calls: kernel={tot[0]:.3f} ms "
-          f"plain={tot[1]:.3f} ms library={tot[2]:.3f} ms "
-          f"bound={tot[3]:.4f} ms", flush=True)
 
 
 CODEC_KERNELS = ("tap_gemm", "topk_mask", "compact")
 # launches per frame (encode + decode), top-k and coded geometry
 TOPK_LAUNCHES = {"tap_gemm": 19, "topk_mask": 3, "compact": 3}
 CODED_LAUNCHES = {"tap_gemm": 61, "topk_mask": 0, "compact": 9}
-
-
-def codec_launches():
-    return {name: kernels.LAUNCHES[name] for name in CODEC_KERNELS}
+PROBE_KERNELS = ("tile_tapconv", "window_gather_sum")
 
 
 # -- phase 5: the probe entry points -------------------------------------------
 
 def run_probes():
-    """Drive both probe entry points (counts zeroed just before), then
-    hold P1 and P2 against their plain versions on the full arrays."""
-    kernels.reset_launches()
-    micro_gather.main([])
-    window_gather.main([])
-    launches = dict(kernels.LAUNCHES)
-    for name in ("tile_tapconv", "window_gather_sum"):
+    """Drive both probe entry points (each must launch its kernel), then
+    hold P1 and P2 against their plain versions on the full arrays.
+    Returns the probes' launches."""
+    with profiling.recording() as rec:
+        micro_gather.main([])
+        window_gather.main([])
+    launches = launch_counts(rec, PROBE_KERNELS)
+    for name in PROBE_KERNELS:
         assert launches[name] > 0, f"the probes did not launch {name}"
-    rows = {}
 
-    r = rows["tile_tapconv"] = {"max_abs_err": 0.0, "ms": 0.0,
-                                "plain_ms": 0.0, "library_ms": 0.0,
-                                "bound_ms": 0.0, "bound_by": "operations"}
     n_rows, tile = 1 << 19, 2048
     for dtype in (torch.bfloat16, torch.float32):
         x, idx, w = micro_gather.tapconv_inputs(n_rows, tile, dtype, "cuda")
@@ -965,96 +808,21 @@ def run_probes():
         err = float((got - ref).abs().max())
         tol = P1_TOL[dtype] * float(ref.abs().max()) + 1e-5
         assert err <= tol, "tile_tapconv disagrees at the probe's shape"
-        del got, ref
-        t_k = cuda_time(lambda: tile_tapconv(x, idx, w, tile), 5)
-        t_p = cuda_time(lambda: tile_tapconv_plain(x, idx, w, tile), 2)
-        base = (torch.arange(n_rows, device="cuda") // tile * tile)[:, None]
-        stack = x[base + idx.long()].reshape(n_rows, -1)
-        w2 = w.reshape(-1, w.shape[-1])
-        t_l = cuda_time(lambda: torch.matmul(stack, w2), 3)
-        lib = f"matmul(pre-gathered stack, same type)={t_l:.3f} ms"
-        if dtype == torch.float32:
-            # the kernel rounds to TF32: the like-for-like library call is
-            # the matmul with TF32 allowed (around this call only)
-            torch.backends.cuda.matmul.allow_tf32 = True
-            try:
-                t_l32, t_l = t_l, cuda_time(lambda: torch.matmul(stack, w2), 3)
-            finally:
-                torch.backends.cuda.matmul.allow_tf32 = False
-            lib = (f"matmul(pre-gathered stack, allow_tf32)={t_l:.3f} ms "
-                   f"(full f32: {t_l32:.3f} ms)")
-        del stack
-        size = x.element_size()
-        flops = 2 * n_rows * idx.shape[1] * w.shape[1] * w.shape[2]
-        nbytes = (x.numel() * size + w.numel() * size + idx.numel() * 4
-                  + n_rows * w.shape[2] * 4)
-        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32
-        b, by = bound_ms(nbytes, flops, peak)
         print(f"[p1 probe] {str(dtype).split('.')[-1]} rows={n_rows} "
-              f"tile={tile} err={err:.3e} tol={tol:.3e} kernel={t_k:.3f} ms "
-              f"plain={t_p:.3f} ms {lib} bound={b:.4f} ms by {by}",
-              flush=True)
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += t_k
-        r["plain_ms"] += t_p
-        r["library_ms"] += t_l
-        r["bound_ms"] += b
-        del x, idx, w
+              f"tile={tile} err={err:.3e} tol={tol:.3e}", flush=True)
+        del x, idx, w, got, ref
 
     win, idx = window_gather.window_inputs(16, "cuda")
     ref = window_gather_sum_plain(win, idx)
     modes = window_modes(win)
-    t_modes = {}
     for mode, plan in modes.items():
         got = window_gather_sum(win, idx, plan=plan)
         assert torch.equal(got, ref), \
             f"window_gather_sum ({mode}) differs at the probe's shape"
-        t_modes[mode] = cuda_time(
-            lambda: window_gather_sum(win, idx, plan=plan), 10)
-    del got, ref
-    t_k = cuda_time(lambda: window_gather_sum(win, idx), 10)
-    t_p = cuda_time(lambda: window_gather_sum_plain(win, idx), 3)
-    il = idx.long()
-    t_l = cuda_time(lambda: [win[t][il[t]].sum(0)
-                             for t in range(win.shape[0])], 3)
-    # the same work with every row gathering itself: the slab modes'
-    # shared-memory reads without bank conflicts
-    ident = torch.arange(win.shape[1], device="cuda", dtype=torch.int32
-                         ).expand(idx.shape).contiguous()
-    t_id = {m: cuda_time(lambda: window_gather_sum(win, ident, plan=plan), 10)
-            for m, plan in modes.items() if plan.width}
-    nbytes = 2 * win.numel() * 4 + idx.numel() * 4
-    b, by = bound_ms(nbytes, 0)
-    payload = idx.numel() * win.shape[2] * 4
     print(f"[p2 probe] tiles={win.shape[0]} window={win.shape[1]} "
-          f"K={win.shape[2]} equal=True kernel={t_k:.3f} ms "
-          f"({payload / t_k / 1e9:.2f} TB/s gathered payload, "
-          f"{nbytes / t_k / 1e9:.2f} TB/s of the {nbytes / 1e6:.1f} MB the "
-          f"function must move) by mode: "
-          + ", ".join(f"{m} {t:.3f} ms ({payload / t / 1e9:.2f} TB/s)"
-                      for m, t in t_modes.items())
-          + f"; plain={t_p:.3f} ms win[t][idx[t]].sum(0)={t_l:.3f} ms "
-          f"bound={b:.4f} ms by {by}", flush=True)
-    # device-memory bytes of one slab-mode call: each window read once
-    # (its slabs), the sums written once; the indices once per slab, from
-    # L2 after the first
-    for mode, plan in modes.items():
-        if not plan.width:
-            continue
-        idx_l2 = idx.numel() * 4 * plan.slabs
-        print(f"[p2 probe] {mode}: {plan.slabs} slab blocks per tile of "
-              f"{plan.smem / 1024:.0f} KB shared memory; device memory "
-              f"moves {nbytes / 1e6:.1f} MB a call, the blocks read "
-              f"{idx_l2 / 1e6:.1f} MB of indices from L2; "
-              f"{bank_wavefronts(idx, plan.width):.3f} shared-memory "
-              f"wavefronts per quarter warp of gathers with these indices "
-              f"(1 = no bank conflict); with a conflict-free index (every "
-              f"row gathers itself) {t_id[mode]:.3f} ms "
-              f"({payload / t_id[mode] / 1e9:.2f} TB/s)", flush=True)
-    rows["window_gather_sum"] = {"max_abs_err": 0.0, "ms": t_k,
-                                 "plain_ms": t_p, "library_ms": t_l,
-                                 "bound_ms": b, "bound_by": by}
-    return rows, launches
+          f"K={win.shape[2]} equal to the plain version in modes "
+          + ", ".join(modes), flush=True)
+    return launches
 
 
 # -- phase 6: the lossless (coded-occupancy) path ------------------------------
@@ -1078,10 +846,11 @@ class RecordOnly(dict):
             else default
 
 
-def run_coded(codec, frame, q, block_size, measure_k3=False):
+def run_coded(codec, frame, q, block_size, check_k3=False):
     """compress(geom="coded") -> decompress: bins equal on both sides at
-    every stage, geometry exactly lossless, K1 and K3 launched; with
-    measure_k3, K3 on one frame's recorded calls (``[k3 coded]``)."""
+    every stage, geometry exactly lossless, deterministic, launches
+    CODED_LAUNCHES; with check_k3, K3 on one frame's recorded calls against
+    its plain version (``[k3 coded]``)."""
     codec.debug, codec.debug_info, codec.debug_bins = True, [], []
     data = codec.compress(frame, q, block_size=block_size, geom="coded")
     rec = codec.decompress(data)
@@ -1104,25 +873,25 @@ def run_coded(codec, frame, q, block_size, measure_k3=False):
         f"{len(got)} decoded")
     assert np.isfinite(rec).all() and rec.shape[1] == 6
 
-    # timed run, launch counts zeroed just before
+    # the frame again, its launches counted by the tracer
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.time()
-    data2 = codec.compress(frame, q, block_size=block_size, geom="coded")
-    t_enc = time.time() - t0
-    t0 = time.time()
-    rec2 = codec.decompress(data2)
-    torch.cuda.synchronize()
-    t_dec = time.time() - t0
-    launches = codec_launches()
+    with profiling.recording() as counts:
+        t0 = time.time()
+        data2 = codec.compress(frame, q, block_size=block_size, geom="coded")
+        t_enc = time.time() - t0
+        t0 = time.time()
+        rec2 = codec.decompress(data2)
+        torch.cuda.synchronize()
+        t_dec = time.time() - t0
+    launches = launch_counts(counts, CODEC_KERNELS)
     peak = torch.cuda.max_memory_allocated()
     assert data2 == data and np.array_equal(rec2, rec), \
         "the coded path is not deterministic"
     for name in ("tap_gemm", "compact"):
         assert launches[name] > 0, f"{name} was not launched on the coded path"
     assert launches == CODED_LAUNCHES, (launches, CODED_LAUNCHES)
-    if measure_k3:
+    if check_k3:
         # one more frame recording K3's inputs (only K3's: K1's would hold
         # every conv input of the frame)
         kernels.RECORD = RecordOnly("compact")
@@ -1130,8 +899,7 @@ def run_coded(codec, frame, q, block_size, measure_k3=False):
                                         geom="coded"))
         calls, kernels.RECORD = kernels.RECORD.get("compact", []), None
         assert len(calls) == CODED_LAUNCHES["compact"], len(calls)
-        for _ in measure_compact(calls, "coded", profile=False):
-            pass
+        check_compact_calls(calls, "coded", profile=False)
         del calls
     blocks, _ = bitstream.read_container(data)
     occ = sum(len(o) for b in blocks for o in b["occ_bytes"])
@@ -1145,18 +913,6 @@ def run_coded(codec, frame, q, block_size, measure_k3=False):
           f"Y_PSNR={met['sym_y_psnr']:.3f} dB max_memory_allocated="
           f"{peak / 2**30:.2f} GiB launches={launches}", flush=True)
     return data
-
-
-def coded_stage_times(codec, frame, q):
-    codec.profile, codec.stage_times = True, {}
-    try:
-        codec.decompress(codec.compress(frame, q, block_size=1024,
-                                        geom="coded"))
-    finally:
-        codec.profile = False
-    print("[coded] stage ms (block 1024, synchronized per stage): "
-          + " ".join(f"{k}={v * 1e3:.1f}"
-                     for k, v in codec.stage_times.items()), flush=True)
 
 
 # -- phase 7: simulcast, streaming, color refit --------------------------------
@@ -1334,8 +1090,7 @@ def run_region(frame, q):
     """Region-candidate g_s through the codec (abl_region5's widths, the
     port's own initialization under a fixed seed: the ablation has no
     committed weights): gates, then every recorded kernel call of the
-    decode against its plain version.  Returns the kernel rows of
-    measure_recorded."""
+    decode against its plain version."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(REGION_SEED)
         model = UnifiedModel(dict(ABL_REGION5_CONFIG,
@@ -1358,16 +1113,15 @@ def run_region(frame, q):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    prepared_before = F.PREPARE_CALLS
-    t0 = time.time()
-    data2 = codec.compress(frame, q, block_size=1024)
-    t_enc = time.time() - t0
-    t0 = time.time()
-    rec2 = codec.decompress(data2)
-    torch.cuda.synchronize()
-    t_dec = time.time() - t0
-    launches = codec_launches()
+    with profiling.recording() as counts:
+        t0 = time.time()
+        data2 = codec.compress(frame, q, block_size=1024)
+        t_enc = time.time() - t0
+        t0 = time.time()
+        rec2 = codec.decompress(data2)
+        torch.cuda.synchronize()
+        t_dec = time.time() - t0
+    launches = launch_counts(counts, CODEC_KERNELS)
     peak = torch.cuda.max_memory_allocated()
     assert data2 == data and np.array_equal(rec2, rec), \
         "region: the codec is not deterministic"
@@ -1375,37 +1129,9 @@ def run_region(frame, q):
     k_sum = sum(b["k"][2] for b in blocks)
     assert rec.shape[0] == k_sum, (rec.shape, k_sum)
     assert np.isfinite(rec).all() and rec.shape[1] == 6
-    assert F.PREPARE_CALLS == prepared_before, \
+    assert counts.total("taps.prepared") == 0, \
         "region: a conv prepared its weights during the frame"
     assert launches == REGION_LAUNCHES, (launches, REGION_LAUNCHES)
-
-    codec.profile, codec.stage_times = True, {}
-    try:
-        codec.decompress(data)
-    finally:
-        codec.profile = False
-    synth_ms = codec.stage_times["dec.synthesis"] * 1e3
-
-    # where the decode's device time goes (one decode under the profiler)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        codec.decompress(data)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA
-                     and _device_us(e) > 0), key=_device_us, reverse=True)
-    busy = sum(_device_us(e) for e in events) / 1e3
-    k1 = sum(_device_us(e) for e in events if "tap_mainloop" in e.key) / 1e3
-    print(f"[region] one decode under torch.profiler: wall {wall * 1e3:.1f} "
-          f"ms, device busy {busy:.1f} ms, of which K1 {k1:.3f} ms; top "
-          "device operations:", flush=True)
-    for e in events[:8]:
-        print(f"[region]   {_device_us(e) / 1e3:8.3f} ms {e.count:6d}x "
-              f"{e.key[:90]}", flush=True)
 
     # the decode once more, recording its kernel calls
     kernels.RECORD = {}
@@ -1419,8 +1145,7 @@ def run_region(frame, q):
     met = pc_metrics(frame, rec, 1023, with_d2=False)
     print(f"[region] block 1024: decoded={rec.shape[0]} (= sum k[2] {k_sum}) "
           f"encoder/decoder bit-exact; encode={t_enc:.3f} s "
-          f"decode={t_dec:.3f} s dec.synthesis={synth_ms:.2f} ms "
-          f"(synchronized stage) bpp={len(data) * 8 / len(frame):.4f} "
+          f"decode={t_dec:.3f} s bpp={len(data) * 8 / len(frame):.4f} "
           f"D1_PSNR={met['sym_psnr_mse']:.3f} dB "
           f"Y_PSNR={met['sym_y_psnr']:.3f} dB (seeded init, no training) "
           f"max_memory_allocated={peak / 2**30:.2f} GiB launches={launches} "
@@ -1428,13 +1153,7 @@ def run_region(frame, q):
     convs = [m for m in codec.model.modules() if isinstance(m, _TapConv)]
     layer_of = {id(plan): (m, kind) for m in convs
                 for kind, (_, plan) in m._plans.items()}
-    rows = measure_recorded(record, layer_of, tag="region", profile=False)
-    for name, r in rows.items():
-        print(f"[region] {name}: {len(record.get(name, []))} calls, "
-              f"kernel={r['ms']:.3f} ms plain={r['plain_ms']:.3f} ms "
-              f"library={r['library_ms']:.3f} ms bound={r['bound_ms']:.4f} "
-              f"ms max_abs_err={r['max_abs_err']:.3e}", flush=True)
-    return rows
+    check_recorded(record, layer_of, tag="region", profile=False)
 
 
 # -- phase 11: the flagship's training step ----------------------------------
@@ -1468,17 +1187,7 @@ TRAIN_KEYS = {
         "bpp-y": {"type": "BPPLoss", "key": "y", "weight": 1.0},
         "bpp-z": {"type": "BPPLoss", "key": "z", "weight": 1.0}},
 }
-# K1w's choices (ops/family.py::tap_wgrad), each held against the plain
-# version in phase 2 and timed on the recorded training calls: the kept
-# one (the wrapper's defaults), single-column tiles, zero-filled rows
-# instead of row lists, and two other split targets
-WGRAD_CHOICES = {
-    "kept": {},
-    "single-column tiles": {"pairs": False},
-    "zero-fill": {"row_lists": False},
-    "4 an SM": {"per_sm": 4},
-    "16 an SM": {"per_sm": 16},
-}
+# the steps over which the launches and preparations a step are counted
 TRAIN_TIMED_STEPS = 5
 TRAIN_FALL_STEPS = 20
 # whole-step gradients, kernels against the plain autograd path, on a
@@ -1557,49 +1266,6 @@ def plain_autograd(fn):
         F._gemm, sparse.compact, transforms.compact = saved
 
 
-def train_profile(tr, st, q, lam, root):
-    """One step under torch.profiler, forward and backward in separate
-    windows: (device busy ms, {name: (ms, launches)}) for K1 forward, K1
-    dgrad, K1w and the row gathers' gradients."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def window(fn):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-        return out, ev
-
-    step = tr.step_fn
-    step.optimizer.zero_grad(set_to_none=True)
-    t0 = time.perf_counter()
-    (total, _), ev_f = window(lambda: step.loss(st, q, lam, root))
-    _, ev_b = window(lambda: (total.backward(), step.optimizer.step()))
-    wall = (time.perf_counter() - t0) * 1e3
-
-    def pick(ev, key):
-        sel = [e for e in ev if key in e.key]
-        return (sum(_device_us(e) for e in sel) / 1e3,
-                sum(e.count for e in sel))
-    for tag, ev in (("forward", ev_f), ("backward + update", ev_b)):
-        top = sorted(ev, key=_device_us, reverse=True)[:10]
-        print(f"[train] profiled step, {tag}: device busy "
-              f"{sum(_device_us(e) for e in ev) / 1e3:.1f} ms; top device "
-              "operations:", flush=True)
-        for e in top:
-            print(f"[train]   {_device_us(e) / 1e3:8.3f} ms {e.count:6d}x "
-                  f"{e.key[:90]}", flush=True)
-    busy = sum(_device_us(e) for e in ev_f + ev_b) / 1e3
-    return busy, wall, {"K1 forward": pick(ev_f, "tap_mainloop"),
-                        "K1 dgrad": pick(ev_b, "tap_mainloop"),
-                        "K1w": pick(ev_b, "tap_wgrad_kernel"),
-                        "row-gather gradients (index_add_)":
-                            pick(ev_b, "indexFuncLargeIndex")}
-
-
 def drop_lists(ok):
     """Forget the K1w row lists kept on a map (ops/family.py::
     wgrad_row_lists), so that the next call builds them."""
@@ -1609,35 +1275,19 @@ def drop_lists(ok):
 def check_recorded_backward(record):
     """Every K1 dgrad call (K1 on a mirrored plan) and K1w call of one
     recorded step against its plain version (tolerance as K1's), K1w
-    twice bit-equal; each timed beside its plain version, a library call
-    and its bound.  Returns the K1w and K1 dgrad rows and the K3 backward
-    gathers' ms and bound."""
+    twice bit-equal."""
     torch.set_grad_enabled(False)
     try:
-        return _check_recorded_backward(record)
+        _check_recorded_backward(record)
     finally:
         torch.set_grad_enabled(True)
 
 
 def _check_recorded_backward(record):
-    wg = {id(c[4]): c for c in record.get("tap_wgrad", [])}
-    rows = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                "library_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0,
-                "t_ops": 0.0, "calls": 0}
-            for n in ("tap_wgrad", "dgrad")}
-
-    def add(name, err, t_k, t_p, t_l, nbytes, flops):
-        r = rows[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += t_k
-        r["plain_ms"] += t_p
-        r["library_ms"] += t_l
-        r["bound_ms"] += bound_ms(nbytes, flops)[0]
-        r["t_bytes"] += nbytes / PEAK_BYTES * 1e3
-        r["t_ops"] += flops / PEAK_BF16 * 1e3
-        r["calls"] += 1
-
-    for flat, idx, ok, dacc, plan in record.get("tap_wgrad", []):
+    wgr = record.get("tap_wgrad", [])
+    wg = {id(c[4]): c for c in wgr}
+    worst = 0.0
+    for flat, idx, ok, dacc, plan in wgr:
         got = F.tap_wgrad(flat, idx, ok, dacc, plan)
         again = F.tap_wgrad(flat, idx, ok, dacc, plan)
         dense = F.tap_wgrad_plain(flat, idx, ok, dacc)
@@ -1648,79 +1298,19 @@ def _check_recorded_backward(record):
         assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
             "tap_wgrad: two calls on the same inputs differ"
         del got, again, ref, dense
-        # per call: the kernel with its map's row lists kept (as every
-        # layer after the first on a map finds them), and with the lists
-        # built afresh, as the first layer on a map does
-        t_k = cuda_time(lambda: F.tap_wgrad(flat, idx, ok, dacc, plan), 3)
-        t_cold = cuda_time(lambda: (drop_lists(ok), F.tap_wgrad(
-            flat, idx, ok, dacc, plan)), 3)
-        t_p = cuda_time(lambda: F.tap_wgrad_plain(flat, idx, ok, dacc), 1)
-        n, taps = idx.shape
-        stack = (flat[idx.clamp(max=flat.shape[0] - 1).long()]
-                 * ok[..., None].to(flat.dtype)).reshape(n, -1)
-        t_l = cuda_time(lambda: torch.matmul(stack.T, dacc), 2)
-        del stack
-        # the function's work: the structurally nonzero weight elements
-        # (those of the forward's stack) times the rows each tap reads
-        nnz = (plan.dense() != 0).reshape(taps, -1).sum(1).double()
-        flops = float(2 * (ok.sum(0).double() * nnz).sum())
-        nbytes = (flat.numel() * 2 + dacc.numel() * 2 + idx.numel() * 5
-                  + float(nnz.sum()) * 4)
-        t_pol = {choice: cuda_time(
-            lambda: F.tap_wgrad(flat, idx, ok, dacc, plan, **kw), 3)
-            for choice, kw in WGRAD_CHOICES.items()}
-        t_lists = cuda_time(lambda: (drop_lists(ok), F.wgrad_row_lists(ok)),
-                            3)
+        worst = max(worst, err)
         dens = ok.float().mean(0)
-        n_tiles = len(plan.wgrad_tiles(plan.n_col > 1))
+        n, n_tiles = idx.shape[0], len(plan.wgrad_tiles(plan.n_col > 1))
         print(f"[k1w train] rows={n} K_in={plan.k_in} K_out={plan.k_out} "
               f"listed_blocks={plan.n_blocks} tiles={n_tiles} splits="
               f"{F.wgrad_splits(n, n_tiles, F._sm_count(ok.device))} "
               f"ok density {float(dens.mean()):.3f} (taps "
               f"{float(dens.min()):.3f}-{float(dens.max()):.3f}) "
-              f"err={err:.3e} kernel={t_cold:.3f} ms (lists kept "
-              f"{t_k:.3f}) plain={t_p:.3f} ms matmul={t_l:.3f} ms bound="
-              f"{bound_ms(nbytes, flops)[0]:.4f} ms; row lists alone "
-              f"{t_lists:.3f} ms; choices, lists kept: " + ", ".join(
-                  f"{k} {v:.3f} ms" for k, v in t_pol.items()), flush=True)
-        add("tap_wgrad", err, t_cold, t_p, t_l, nbytes, flops)
-    # the step's calls in order, each map's lists built by its first layer,
-    # under each choice: K1w's time over the step
-    calls = record.get("tap_wgrad", [])
+              f"err={err:.3e} tol={tol:.3e}", flush=True)
+    print(f"[train] tap_wgrad: {len(wgr)} calls, max_abs_err={worst:.3e}, "
+          "each twice bit-equal", flush=True)
 
-    def replay(kw):
-        for c in calls:
-            drop_lists(c[2])
-        for flat, idx, ok, dacc, plan in calls:
-            F.tap_wgrad(flat, idx, ok, dacc, plan, **kw)
-    step_ms = {choice: cuda_time(lambda: replay(kw), 3)
-               for choice, kw in WGRAD_CHOICES.items()}
-
-    def in_step():  # each call's share of one kept replay (CUDA events)
-        for c in calls:
-            drop_lists(c[2])
-        ev = [torch.cuda.Event(enable_timing=True) for _ in calls] + [
-            torch.cuda.Event(enable_timing=True)]
-        ev[0].record()
-        for i, (flat, idx, ok, dacc, plan) in enumerate(calls):
-            F.tap_wgrad(flat, idx, ok, dacc, plan)
-            ev[i + 1].record()
-        ev[-1].synchronize()
-        return np.array([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
-    in_step()
-    share = np.mean([in_step() for _ in range(3)], 0)
-    print("[k1w step] each call's ms in the step's order (lists built by "
-          "the first call on a map): " + " ".join(f"{v:.3f}" for v in share),
-          flush=True)
-    rows["tap_wgrad"]["calls_ms"] = rows["tap_wgrad"]["ms"]
-    rows["tap_wgrad"]["ms"] = step_ms["kept"]
-    print(f"[train] K1w over the step's {len(calls)} calls in order "
-          f"({len({id(c[2]) for c in calls})} maps, lists built once a map) "
-          "by choice: " + ", ".join(f"{k} {v:.3f} ms"
-                                   for k, v in step_ms.items())
-          + f"; each call building its own lists: "
-          f"{rows['tap_wgrad']['calls_ms']:.3f} ms", flush=True)
-
+    worst, dgrads = 0.0, 0
     for g, idx, ok, plan_t in record.get("tap_gemm", []):
         if plan_t.mirror_of is None:
             continue  # a forward call
@@ -1731,81 +1321,23 @@ def _check_recorded_backward(record):
         tol = 1e-3 * float(ref.abs().max()) + 1e-5
         assert err <= tol, "K1 dgrad disagrees with its plain version"
         del got, ref
-        t_k = cuda_time(lambda: F.tap_gemm(g, idx, ok, plan_t), 3)
-        t_p = cuda_time(lambda: F.tap_dgrad_plain(dacc, fidx, fok, plan,
-                                                  flat.shape[0]), 1)
-        w = plan_t.dense()
-        n, taps = idx.shape
-        stack = (g[idx.clamp(max=g.shape[0] - 1).long()]
-                 * ok[..., None].to(g.dtype)).reshape(n, -1)
-        w2 = w.reshape(-1, w.shape[-1])
-        t_l = cuda_time(lambda: torch.matmul(stack, w2), 2)
-        del stack
-        nnz = (w != 0).reshape(taps, -1).sum(1).double()
-        flops = float(2 * (ok.sum(0).double() * nnz).sum())
-        nbytes = (g.numel() * 2 + float(nnz.sum()) * 2 + idx.numel() * 5
-                  + n * w.shape[-1] * 4)
-        print(f"[k1 dgrad train] rows={n} K_in={w.shape[1]} "
-              f"K_out={w.shape[2]} "
+        worst, dgrads = max(worst, err), dgrads + 1
+        print(f"[k1 dgrad train] rows={idx.shape[0]} K_in={plan_t.k_in} "
+              f"K_out={plan_t.k_out} "
               f"self_map={idx.data_ptr() == fidx.data_ptr()} err={err:.3e} "
-              f"kernel={t_k:.3f} ms plain={t_p:.3f} ms matmul={t_l:.3f} ms "
-              f"bound={bound_ms(nbytes, flops)[0]:.4f} ms", flush=True)
-        add("dgrad", err, t_k, t_p, t_l, nbytes, flops)
-    assert rows["dgrad"]["calls"] == len(wg) - 1, \
+              f"tol={tol:.3e}", flush=True)
+    print(f"[train] dgrad: {dgrads} calls, max_abs_err={worst:.3e}",
+          flush=True)
+    assert dgrads == len(wg) - 1, \
         "every layer but g_a's first must have run its dgrad"
-
-    # the K3 backward: a rank gather per differentiable payload; its bound
-    # reads keep and the output gradient once and writes the payload
-    # gradient once, zeros included
-    gather = {"ms": 0.0, "bound_ms": 0.0}
-    for keys, keep, arrays, m in record.get("compact", []):
-        for a in arrays:
-            if a.is_floating_point():
-                gout = torch.ones((m,) + a.shape[1:], dtype=a.dtype,
-                                  device=a.device)
-                gather["ms"] += cuda_time(
-                    lambda: sparse.compact_grad(keep, gout, m), 5)
-                row = a[:1].numel() * a.element_size()
-                gather["bound_ms"] += bound_ms(
-                    keep.numel() + (m + a.shape[0]) * row, 0)[0]
-    for r in rows.values():
-        r["bound_by"] = "bytes" if r["t_bytes"] >= r["t_ops"] \
-            else "operations"
-    return rows, gather
-
-
-def around_k1w(model, plans):
-    """The plain-torch work on either side of K1w in a step: laying its
-    blocks into the dense stack (``TapPlan.lay``) over the step's plans,
-    and over the tap layers the dense stack's forward (``_dense_taps``,
-    part of each step's weight preparation) and its backward, which
-    carries dW to the parameter.  Returns (lay ms, (forward ms, backward
-    ms))."""
-    lay = sum(cuda_time(lambda: plan.lay(torch.ones(
-        (plan.n_blocks, plan.bk, plan.bn), device="cuda")), 3)
-        for plan in plans)
-    fwd = both = 0.0
-    for m in model.modules():
-        if not isinstance(m, _TapConv) or (m.kind == "transpose"
-                                           and m.kernel_size == 2):
-            continue
-        kind = ("grand_" if m.grand else "") + m.kind
-        w = m.w.detach().clone().requires_grad_()
-        g = torch.ones_like(F._dense_taps(w, kind, m.kernel_size))
-        fwd += cuda_time(lambda: F._dense_taps(w.detach(), kind,
-                                               m.kernel_size), 3)
-        both += cuda_time(lambda: torch.autograd.grad(
-            F._dense_taps(w, kind, m.kernel_size), w, g), 3)
-    return lay, (fwd, both - fwd)
 
 
 def run_train(smi):
     """The flagship's training step at full width on one vox10 frame's
-    cubes: step timing, launches, prepares, the recorded backward against
-    its plain versions, one profiled step, whole-step gradients against
-    the plain autograd path, the loss on a fixed batch over 20 steps, and
-    a Training-driven run with validation and resume."""
-    from upcc_tpu_torch.models.unified import host_root_maps
+    cubes: launches and preparations a step, the recorded backward against
+    its plain versions, whole-step gradients against the plain autograd
+    path, the loss on a fixed batch over 20 steps, and a Training-driven
+    run with validation and resume.  Returns the launches a step."""
     from upcc_tpu_torch.training.trainer import Training
     tmp = tempfile.mkdtemp(prefix="upcc_train_")
     try:
@@ -1836,18 +1368,17 @@ def run_train(smi):
             tr.step_fn(st, q, lam, root, gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        prepared = F.PREPARE_CALLS
         times = []
-        for _ in range(TRAIN_TIMED_STEPS):
-            t0 = time.perf_counter()
-            met = tr.step_fn(st, q, lam, root, gen)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+        with profiling.recording() as counts:
+            for _ in range(TRAIN_TIMED_STEPS):
+                t0 = time.perf_counter()
+                met = tr.step_fn(st, q, lam, root, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated()
-        launches = {k: v // TRAIN_TIMED_STEPS
-                    for k, v in kernels.LAUNCHES.items() if v}
-        prepares = (F.PREPARE_CALLS - prepared) / TRAIN_TIMED_STEPS
+        launches = {k: v // TRAIN_TIMED_STEPS for k, v in
+                    launch_counts(counts, kernels.SOURCES).items() if v}
+        prepares = counts.total("taps.prepared") / TRAIN_TIMED_STEPS
         assert all(math.isfinite(float(v)) for v in met.values()), met
         assert prepares == 2 * n_layers - 1, \
             f"{prepares} weight preparations a step, not {2 * n_layers - 1}"
@@ -1867,33 +1398,8 @@ def run_train(smi):
         kernels.RECORD = {}
         tr.step_fn(st, q, lam, root, gen)
         record, kernels.RECORD = kernels.RECORD, None
-        rows, gather = check_recorded_backward(record)
-        record_lay = [c[4] for c in record.get("tap_wgrad", [])]
+        check_recorded_backward(record)
         del record
-        for name, r in rows.items():
-            print(f"[train] {name}: {r['calls']} calls, kernel="
-                  f"{r['ms']:.3f} ms plain={r['plain_ms']:.3f} ms library="
-                  f"{r['library_ms']:.3f} ms bound={r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3e}",
-                  flush=True)
-        print(f"[train] K3 backward (rank gather, plain torch) over the "
-              f"step's compactions: {gather['ms']:.3f} ms, bound "
-              f"{gather['bound_ms']:.4f} ms (bytes)", flush=True)
-
-        lay_ms, taps_ms = around_k1w(tr.model, record_lay)
-        del record_lay
-        print(f"[train] plain torch around K1w a step: plan.lay of its "
-              f"blocks {lay_ms:.3f} ms; _dense_taps forward {taps_ms[0]:.3f}"
-              f" ms, backward {taps_ms[1]:.3f} ms", flush=True)
-
-        busy, wall, prof = train_profile(tr, st, q, lam, root)
-        med = float(np.median(times))
-        print(f"[train] one step under torch.profiler: wall {wall:.1f} ms, "
-              f"device busy {busy:.1f} ms ({100 * busy / med:.1f}% of the "
-              f"median step {med:.1f} ms); "
-              + "; ".join(
-                  f"{k} {ms:.3f} ms in {n} launches"
-                  for k, (ms, n) in prof.items()), flush=True)
 
         check_step_gradients(tr, q, lam, "train")
 
@@ -1953,7 +1459,7 @@ def run_train(smi):
               f"D1_PSNR={float(val[0]['sym_psnr_mse']):.3f} dB; resumed at "
               f"epoch {tr2.start_epoch}, step {tr2.step_fn.step}, parameters "
               f"equal; files {sorted(os.listdir(exp))}", flush=True)
-        return rows, launches
+        return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2143,14 +1649,11 @@ def region_train_config(root):
 def run_region_train(smi):
     """Region-candidate training at abl_region5's widths (seeded init) on
     train frame 0 cut into 64^3 cubes, the packer's fullest batch of 4 at
-    the trainer's auto capacity: step time and memory, the launches a step,
-    every K1 dgrad and K1w call of one recorded step against its plain
-    version (the cross maps' calls timed), the int64 key arithmetic's
-    device time, whole-step gradients against plain autograd, and the loss
-    on a fixed batch over REGION_FALL_STEPS steps (gated to fall by
-    REGION_FALL_RATIO)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    the trainer's auto capacity: the launches a step, every K1 dgrad and
+    K1w call of one recorded step against its plain version (at least 3 of
+    each on cross maps), whole-step gradients against plain autograd, and
+    the loss on a fixed batch over REGION_FALL_STEPS steps (gated to fall
+    by REGION_FALL_RATIO)."""
     from upcc_tpu_torch.training.trainer import Training
     tmp = tempfile.mkdtemp(prefix="upcc_region_train_")
     try:
@@ -2176,16 +1679,16 @@ def run_region_train(smi):
             tr.step_fn(st, q, lam, root, gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
         times = []
-        for _ in range(TRAIN_TIMED_STEPS):
-            t0 = time.perf_counter()
-            met = tr.step_fn(st, q, lam, root, gen)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+        with profiling.recording() as counts:
+            for _ in range(TRAIN_TIMED_STEPS):
+                t0 = time.perf_counter()
+                met = tr.step_fn(st, q, lam, root, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated()
-        launches = {k: v // TRAIN_TIMED_STEPS
-                    for k, v in kernels.LAUNCHES.items() if v}
+        launches = {k: v // TRAIN_TIMED_STEPS for k, v in
+                    launch_counts(counts, kernels.SOURCES).items() if v}
         assert all(math.isfinite(float(v)) for v in met.values()), met
         for name in ("tap_gemm", "tap_wgrad", "topk_mask", "compact"):
             assert launches.get(name, 0) > 0, \
@@ -2208,12 +1711,12 @@ def run_region_train(smi):
         assert len(fwd) + len(dgr) == launches["tap_gemm"]
         assert len(wgr) == launches["tap_wgrad"] == len(dgr) + 1
 
-        # every K1w and K1 dgrad call against its plain version; the cross
-        # maps' calls (the three region transposes and h_s's head) timed
+        # every K1w and K1 dgrad call against its plain version, counting
+        # those over cross maps (the three region transposes and h_s's head)
         torch.set_grad_enabled(False)
         try:
             wg = {id(c[4]): c for c in wgr}
-            cross = {"K1w": [0, 0.0, 0.0], "K1 dgrad": [0, 0.0, 0.0]}
+            cross = {"K1w": 0, "K1 dgrad": 0}
             worst = 0.0
             for flat, idx, ok, dacc, plan in wgr:
                 got = F.tap_wgrad(flat, idx, ok, dacc, plan)
@@ -2223,13 +1726,7 @@ def run_region_train(smi):
                 assert err <= 1e-3 * float(ref.abs().max()) + 1e-5, \
                     "region train: K1w disagrees with its plain version"
                 worst = max(worst, rel)
-                if idx.shape[0] != flat.shape[0]:  # a cross map
-                    c = cross["K1w"]
-                    c[0] += 1
-                    c[1] += cuda_time(lambda: F.tap_wgrad(
-                        flat, idx, ok, dacc, plan), 3)
-                    c[2] += cuda_time(lambda: F.tap_wgrad_plain(
-                        flat, idx, ok, dacc), 1)
+                cross["K1w"] += idx.shape[0] != flat.shape[0]
             for g, idx, ok, plan_t in dgr:
                 flat, fidx, fok, dacc, plan = wg[id(plan_t.mirror_of)]
                 got = F.tap_gemm(g, idx, ok, plan_t)
@@ -2238,43 +1735,17 @@ def run_region_train(smi):
                 assert err <= 1e-3 * float(ref.abs().max()) + 1e-5, \
                     "region train: K1 dgrad disagrees with its plain version"
                 worst = max(worst, err / max(float(ref.abs().max()), 1e-30))
-                if fidx.shape[0] != flat.shape[0]:
-                    c = cross["K1 dgrad"]
-                    c[0] += 1
-                    c[1] += cuda_time(lambda: F.tap_gemm(g, idx, ok, plan_t),
-                                      3)
-                    c[2] += cuda_time(lambda: F.tap_dgrad_plain(
-                        dacc, fidx, fok, plan, flat.shape[0]), 1)
+                cross["K1 dgrad"] += fidx.shape[0] != flat.shape[0]
         finally:
             torch.set_grad_enabled(True)
         del record, wg
         print(f"[region train] every K1w ({len(wgr)}) and K1 dgrad "
               f"({len(dgr)}) call within 1e-3 x max|plain| (worst "
-              f"{worst:.3e}); on the cross maps: " + "; ".join(
-                  f"{k} {n} calls kernel {t:.3f} ms plain {tp:.3f} ms"
-                  for k, (n, t, tp) in cross.items()), flush=True)
-        assert cross["K1w"][0] >= 3 and cross["K1 dgrad"][0] >= 3
+              f"{worst:.3e}); on the cross maps: "
+              + ", ".join(f"{k} {n} calls" for k, n in cross.items()),
+              flush=True)
+        assert cross["K1w"] >= 3 and cross["K1 dgrad"] >= 3
         del fwd, dgr, wgr
-
-        # where the step's device time goes: K1, K1w, and the elementwise
-        # kernels on int64 (the key arithmetic of dilation and search)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            tr.step_fn(st, q, lam, root, gen)
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-        busy = sum(_device_us(e) for e in ev) / 1e3
-        pick = lambda f: (sum(_device_us(e) for e in ev if f(e.key)) / 1e3,
-                          sum(e.count for e in ev if f(e.key)))
-        i64 = pick(lambda k: "long" in k and ("elementwise" in k
-                                              or "reduce" in k))
-        print(f"[region train] one step under torch.profiler: device busy "
-              f"{busy:.1f} ms; K1 {pick(lambda k: 'tap_mainloop' in k)[0]:.3f}"
-              f" ms; K1w {pick(lambda k: 'tap_wgrad_kernel' in k)[0]:.3f} ms;"
-              f" int64 key arithmetic (elementwise and reduce kernels on "
-              f"int64) {i64[0]:.3f} ms in {i64[1]} launches (reported, not "
-              f"fixed: ROADMAP)", flush=True)
 
         check_step_gradients(tr, q, lam, "region train")
 
@@ -2480,14 +1951,14 @@ def run_parallel_train(smi):
               f"and {int((batches[1][0] != C.SENTINEL).sum())} voxels; "
               f"set-up {time.time() - t0:.1f} s", flush=True)
 
-        kernels.reset_launches()
         seq, seq_clip = [], []
-        for _ in range(SPREAD_RUNS):
-            step = flagship_step(cfg)
-            seq_clip.append(watch_clip(step))
-            step(xa, qc, lc, ra, gen(0, 0))
-            seq.append(params_of(step.model))
-            del step
+        with profiling.recording() as counts:
+            for _ in range(SPREAD_RUNS):
+                step = flagship_step(cfg)
+                seq_clip.append(watch_clip(step))
+                step(xa, qc, lc, ra, gen(0, 0))
+                seq.append(params_of(step.model))
+                del step
         pairs = list(itertools.combinations(range(SPREAD_RUNS), 2))
         spread = max(max_diff(seq[i], seq[j]) for i, j in pairs)
         gspread = max(max_diff(seq_clip[i]["pre"], seq_clip[j]["pre"])
@@ -2501,7 +1972,7 @@ def run_parallel_train(smi):
             """(gradient, norm) ratios of a clip record to ``ref``'s."""
             return (tolerance_ratio(log["pre"], ref["pre"], gspread),
                     norm_ratio(log["norm"], ref["norm"], nspread))
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts(counts, kernels.SOURCES)
         for name in ("tap_gemm", "tap_wgrad", "topk_mask", "compact"):
             assert launches[name] > 0, f"parallel dp: {name} not launched"
 
@@ -2630,13 +2101,13 @@ def run_parallel_codec(frame):
         n_dec = len(codec_mod._chunk_decode_groups(
             bitstream.read_container(ref)[0]))
         torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.time()
-        data = par.compress(frame, q, block_size=512)
-        rec = par.decompress(data)
-        torch.cuda.synchronize()
-        t_par = time.time() - t0
-        launches = codec_launches()
+        with profiling.recording() as counts:
+            t0 = time.time()
+            data = par.compress(frame, q, block_size=512)
+            rec = par.decompress(data)
+            torch.cuda.synchronize()
+            t_par = time.time() - t0
+        launches = launch_counts(counts, CODEC_KERNELS)
         multi = par.compress_multi(frame, [q, q2], block_size=512)
     finally:
         codec_mod.MAX_GROUP = saved
@@ -2681,7 +2152,6 @@ ORACLE_Q = 1.0
 # a slack past every GT count, so the oracle levels' tie-fill reaches into
 # the -1 candidates
 ORACLE_SLACK = (1.5, 1.25)
-ORACLE_TIMED = 3
 TWIN_SEED, TWIN_EXTENT, TWIN_POINTS = 2024, 128, 6000  # the JAX fixture's
 TWIN_Q, TWIN_BLOCK = (0.5, 0.5), 128
 
@@ -2746,22 +2216,15 @@ def run_oracle(smi):
             base = None
             reached = False
             for levels in DG.ORACLE_CONFIGS:
-                times = []
-                for _ in range(ORACLE_TIMED):
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    DG.oracle_forward(model, st, q, rn, levels)
-                    torch.cuda.synchronize()
-                    times.append((time.perf_counter() - t1) * 1e3)
-                kernels.reset_launches()
                 kernels.RECORD = {}
                 try:
-                    out = DG.oracle_forward(model, st, q, rn, levels)
-                    torch.cuda.synchronize()
+                    with profiling.recording() as counts:
+                        out = DG.oracle_forward(model, st, q, rn, levels)
+                        torch.cuda.synchronize()
                     record = kernels.RECORD
                 finally:
                     kernels.RECORD = None
-                launches = {n: kernels.LAUNCHES[n] for n in CODEC_KERNELS}
+                launches = launch_counts(counts, CODEC_KERNELS)
                 if base is None:
                     base = launches
                 assert launches == base, \
@@ -2777,10 +2240,8 @@ def run_oracle(smi):
                 reached |= any(kept > pos for kept, pos in fills)
                 del out, record
                 print(f"[oracle] slack {tuple(slack)} levels {levels}: "
-                      f"forward ms median {float(np.median(times)):.2f} "
-                      f"({', '.join(f'{t:.2f}' for t in times)}); launches "
-                      f"{launches}; decoded {len(pk)} = sum k[2]; K2 at "
-                      f"oracle levels bit-equal to plain, (kept, +1 "
+                      f"launches {launches}; decoded {len(pk)} = sum k[2]; "
+                      f"K2 at oracle levels bit-equal to plain, (kept, +1 "
                       f"candidates) {fills}", flush=True)
             print(f"[oracle] slack {tuple(slack)}: max_memory_allocated "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
@@ -2809,79 +2270,35 @@ def run_twins(codec):
     """Phase 17: the four native host libraries loaded, and with each
     forced off (its Python or numpy twin instead) the containers of the
     JAX fixture's frame byte-identical in both geometry modes and decoded
-    to the same points; each coder's seconds native and twin."""
-    import threading
-
-    from upcc_tpu_torch.codec import codec as codec_mod
+    to the same points."""
     from upcc_tpu_torch.coding import occ, octree, rans
     libs = [(rans, "_lib", rans._load), (octree, "_lib", octree._load),
             (occ, "_lib", occ._load),
             (sparse, "_vox_lib", sparse._load_voxelize)]
     for mod, name, load in libs:
         assert load(), f"{mod.__name__}: the native library did not load"
-    entries = {"rans": (rans, ("encode_with_indexes", "decode_with_indexes")),
-               "octree": (octree, ("encode", "decode")),
-               "occ": (occ, ("encode", "decode")),
-               "voxelize": (codec_mod, ("voxelize_host_np",))}
-    seconds = {}
-    lock = threading.Lock()
-
-    def timed(coder, fn):
-        def call(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                with lock:
-                    seconds[coder] += time.perf_counter() - t0
-        return call
-
     xyz, rgb = surface_cloud(np.random.default_rng(TWIN_SEED),
                              extent=TWIN_EXTENT, n_target=TWIN_POINTS)
     frame = np.concatenate([xyz.astype(np.float32), rgb], 1)
-    saved = [(mod, fn, getattr(mod, fn)) for mod, fns in entries.values()
-             for fn in fns]
-    try:
-        for coder, (mod, fns) in entries.items():
-            for fn in fns:
-                setattr(mod, fn, timed(coder, getattr(mod, fn)))
-        for geom in ("topk", "coded"):
-            runs = {}
-            for side in ("native", "twin"):
-                seconds.update({c: 0.0 for c in entries})
-                if side == "twin":
-                    for mod, name, _ in libs:
-                        setattr(mod, name, False)
-                try:
-                    t0 = time.perf_counter()
-                    data = codec.compress(frame, TWIN_Q,
-                                          block_size=TWIN_BLOCK, geom=geom)
-                    t_enc = time.perf_counter() - t0
-                    ref = runs["native"][0] if side == "twin" else data
-                    t0 = time.perf_counter()
-                    rec = codec.decompress(ref)
-                    t_dec = time.perf_counter() - t0
-                finally:
-                    for mod, name, load in libs:
-                        setattr(mod, name, None)
-                        load()
-                runs[side] = (data, rec, t_enc, t_dec, dict(seconds))
-            (data, rec, *_), (tdata, trec, *_) = runs["native"], runs["twin"]
-            assert tdata == data, f"{geom}: twins wrote other bytes"
-            assert np.array_equal(trec, rec), \
-                f"{geom}: the twins decoded other points"
-            print(f"[twins] {geom}: {len(frame)} points, {len(data)} B "
-                  f"byte-identical, decoded {len(rec)} points identical; "
-                  f"compress / decompress s native "
-                  f"{runs['native'][2]:.3f} / {runs['native'][3]:.3f}, twins "
-                  f"{runs['twin'][2]:.3f} / {runs['twin'][3]:.3f}", flush=True)
-            for coder in entries:
-                print(f"[twins] {geom} {coder}: s native "
-                      f"{runs['native'][4][coder]:.4f}, twin "
-                      f"{runs['twin'][4][coder]:.4f}", flush=True)
-    finally:
-        for mod, fn, f in saved:
-            setattr(mod, fn, f)
+    for geom in ("topk", "coded"):
+        data = codec.compress(frame, TWIN_Q, block_size=TWIN_BLOCK, geom=geom)
+        rec = codec.decompress(data)
+        for mod, name, _ in libs:
+            setattr(mod, name, False)
+        try:
+            tdata = codec.compress(frame, TWIN_Q, block_size=TWIN_BLOCK,
+                                   geom=geom)
+            trec = codec.decompress(data)
+        finally:
+            for mod, name, load in libs:
+                setattr(mod, name, None)
+                load()
+        assert tdata == data, f"{geom}: twins wrote other bytes"
+        assert np.array_equal(trec, rec), \
+            f"{geom}: the twins decoded other points"
+        print(f"[twins] {geom}: {len(frame)} points, {len(data)} B "
+              f"byte-identical, decoded {len(rec)} points identical",
+              flush=True)
     for mod, name, load in libs:
         assert load(), f"{mod.__name__}: the native library did not reload"
 
@@ -2895,9 +2312,9 @@ GRAFT_LAUNCHES = {"tap_gemm": 18, "topk_mask": 3, "compact": 5}
 
 def run_bench():
     """``upcc_tpu_torch.bench`` in process (its lines printed under
-    ``[bench]``), the vox11 warm-up's recorded kernel calls measured
-    against their plain versions, the graft entry's forward at full width,
-    and spawn's refusal of more ranks than cards."""
+    ``[bench]``), the vox11 warm-up's recorded kernel calls against their
+    plain versions, the graft entry's forward at full width, and spawn's
+    refusal of more ranks than cards."""
     import contextlib
     import io
     from upcc_tpu_torch import bench, graft_entry
@@ -2909,39 +2326,27 @@ def run_bench():
     finally:
         for line in buf.getvalue().splitlines():
             print(f"[bench] {line}", flush=True)
-    for name in ("vox11", "vox10"):
-        t = res["times"][name]
-        print(f"[bench] {name}: rep times s {t}, bpp {res['bpp'][name]}, "
-              f"launches per frame {res['launches'][name]}", flush=True)
-    print(f"[bench] stream per-frame s {res['times']['stream']}; values "
-          + ", ".join(f"{ln['metric']}={ln['value']}"
-                      for ln in res["lines"]), flush=True)
 
     # the vox11 frame's kernel calls (K1, K2, K3) against their plain
-    # versions, timed at these shapes
+    # versions
     convs = [m for m in res["codec"].model.modules()
              if isinstance(m, _TapConv)]
     layer_of = {id(plan): (m, kind) for m in convs
                 for kind, (_, plan) in m._plans.items()}
     record = res.pop("record") or {}
-    rows = measure_recorded(record, layer_of, tag="vox11", profile=False)
-    for name, r in rows.items():
-        print(f"[bench] vox11 {name}: kernel={r['ms']:.3f} ms plain="
-              f"{r['plain_ms']:.3f} ms library={r['library_ms']:.3f} ms "
-              f"bound={r['bound_ms']:.4f} ms max_abs_err="
-              f"{r['max_abs_err']:.3e}", flush=True)
+    check_recorded(record, layer_of, tag="vox11", profile=False)
     del res, record, layer_of, convs
     torch.cuda.empty_cache()
 
     # the graft entry's training-mode forward at the flagship's widths
     fn, args = graft_entry.entry(device="cuda")
     torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.time()
-    feats, lik_y = fn(*args)
-    torch.cuda.synchronize()
-    secs = time.time() - t0
-    launches = codec_launches()
+    with profiling.recording() as counts:
+        t0 = time.time()
+        feats, lik_y = fn(*args)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+    launches = launch_counts(counts, CODEC_KERNELS)
     assert torch.isfinite(feats).all() and torch.isfinite(lik_y).all()
     assert launches == GRAFT_LAUNCHES, (launches, GRAFT_LAUNCHES)
     print(f"[graft] entry() forward: prediction feats {tuple(feats.shape)}, "
@@ -3084,18 +2489,17 @@ def main():
           f"bit-exact over {len(enc)} block(s)", flush=True)
     codec.debug, codec.debug_info = False, []
 
-    # timed run with the launch counts zeroed just before
+    # the frame again, its launches and preparations counted by the tracer
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    prepared_before = F.PREPARE_CALLS
-    t0 = time.time()
-    data = codec.compress(frame, q, block_size=1024)
-    t_enc = time.time() - t0
-    t0 = time.time()
-    rec = codec.decompress(data)
-    torch.cuda.synchronize()
-    t_dec = time.time() - t0
-    launches = codec_launches()
+    with profiling.recording() as counts:
+        t0 = time.time()
+        data = codec.compress(frame, q, block_size=1024)
+        t_enc = time.time() - t0
+        t0 = time.time()
+        rec = codec.decompress(data)
+        torch.cuda.synchronize()
+        t_dec = time.time() - t0
+    launches = launch_counts(counts, CODEC_KERNELS)
     peak = torch.cuda.max_memory_allocated()
     blocks, _ = bitstream.read_container(data)
     k_sum = sum(b["k"][2] for b in blocks)
@@ -3105,7 +2509,7 @@ def main():
         assert launches[name] > 0, \
             f"kernel {name} was not launched on the main path"
     assert launches == TOPK_LAUNCHES, (launches, TOPK_LAUNCHES)
-    assert F.PREPARE_CALLS == prepared_before, \
+    assert counts.total("taps.prepared") == 0, \
         "a conv prepared its weights during the frame (stale or missing plan)"
     bpp = len(data) * 8 / len(frame)
     met = pc_metrics(frame, rec, 1023, with_d2=False)
@@ -3131,21 +2535,11 @@ def main():
           f"{rec512.shape[0]} (= sum k[2]) bpp="
           f"{len(data512) * 8 / len(frame):.4f}", flush=True)
 
-    # 4. recorded main-path calls: kernel vs plain, times, bounds
+    # 4. recorded main-path calls against their plain versions
     layer_of = {id(plan): (m, kind) for m in convs
                 for kind, (_, plan) in m._plans.items()}
-    rows = measure_recorded(record, layer_of)
+    check_recorded(record, layer_of)
     del record, layer_of
-    torch.cuda.synchronize()
-    t0 = time.time()
-    held = sum(m.prepare() for m in convs)
-    torch.cuda.synchronize()
-    print(f"[k1 main] the times above are with the weights prepared ahead; "
-          f"preparing all {len(convs)} conv layers (block lists + packed "
-          f"operands, {held / 2**20:.1f} MiB) takes "
-          f"{(time.time() - t0) * 1e3:.1f} ms, once per update()", flush=True)
-    for r in rows.values():
-        r["bound_by"] = "bytes" if r["t_bytes"] >= r["t_ops"] else "operations"
 
     # 8. the JAX-written stream on the card, 9. region-candidate g_s
     f32_codec = Codec(load_weights(UnifiedModel(FLAGSHIP_CONFIG), WEIGHTS),
@@ -3156,13 +2550,10 @@ def main():
     run_region(frame, q)
 
     # 5. the probe entry points and their two kernels
-    probe_rows, probe_launches = run_probes()
-    rows.update(probe_rows)
-    launches.update({k: probe_launches[k] for k in probe_rows})
+    launches.update(run_probes())
 
     # 6. the lossless path, 7. simulcast, streaming, color refit
-    run_coded(codec, frame, q, 1024, measure_k3=True)
-    coded_stage_times(codec, frame, q)
+    run_coded(codec, frame, q, 1024, check_k3=True)
     run_coded(codec, frame, q, 512)
     run_serving(codec, frame, data)
 
@@ -3170,9 +2561,7 @@ def main():
     run_eval()
 
     # 11. the flagship's training step (K1 forward and dgrad, K1w, K2, K3)
-    train_rows, train_launches = run_train(smi)
-    rows["tap_wgrad"] = train_rows["tap_wgrad"]
-    launches["tap_wgrad"] = train_launches["tap_wgrad"]
+    launches["tap_wgrad"] = run_train(smi)["tap_wgrad"]
 
     # 12-15. region-candidate training and the multi-device paths
     run_parallel(smi, frame)
@@ -3186,18 +2575,9 @@ def main():
         fn()
         print(f"[{name}] phase seconds {time.time() - t0:.1f}", flush=True)
 
-    out = []
-    for name, (src, replaces) in REPLACES.items():
-        r = rows[name]
+    for name in kernels.SOURCES:
         assert launches[name] > 0, f"kernel {name} was launched on no path"
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"]})
     print(smi)
-    print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -26,6 +26,7 @@ from upcc_tpu_torch.ops.probe_kernels import (tile_tapconv,
                                               window_gather_sum,
                                               window_gather_sum_plain)
 from upcc_tpu_torch.probes import micro_gather, window_gather
+from upcc_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -165,45 +166,44 @@ def _window_gather_case(S, K, seed, negative_zero=False):
 def test_wrappers_need_the_card_for_cuda_tensors():
     """On the CPU the wrappers run the plain versions and count no launch;
     kernels.py knows both kernels' sources and signatures."""
-    before = dict(kernels.LAUNCHES)
     x, idx, w = _tapconv_case(1, 64, 8, 8, 27, 32)
-    tile_tapconv(torch.from_numpy(x), torch.from_numpy(idx),
-                 torch.from_numpy(w), 32)
-    window_gather_sum(torch.zeros((1, 8, 4)),
-                      torch.zeros((1, 27, 8), dtype=torch.int32))
-    assert kernels.LAUNCHES == before
+    with profiling.recording() as rec:
+        tile_tapconv(torch.from_numpy(x), torch.from_numpy(idx),
+                     torch.from_numpy(w), 32)
+        window_gather_sum(torch.zeros((1, 8, 4)),
+                          torch.zeros((1, 27, 8), dtype=torch.int32))
+    assert rec.counts == {}
     for name in ("tile_tapconv", "window_gather_sum"):
         assert os.path.exists(os.path.join(
             os.path.dirname(kernels.__file__), kernels.SOURCES[name]))
-        assert name in kernels._SIGNATURES and name in kernels.LAUNCHES
+        assert name in kernels._SIGNATURES
 
 
 def test_count_launch_is_thread_safe():
-    """The codec's worker threads share the launch counts: many threads,
-    a short switch interval, no lost update."""
+    """The codec's worker threads share the tracer's launch counter and
+    the record of inputs: many threads, a short switch interval, no lost
+    update."""
     import sys
     import threading
     n_threads, n_each = 16, 2000
     old = sys.getswitchinterval()
-    saved = dict(kernels.LAUNCHES)
-    kernels.reset_launches()
     kernels.RECORD = {}
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=lambda: [
-            kernels.count_launch("compact", i) for i in range(n_each)])
-            for _ in range(n_threads)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=60)
-            assert not t.is_alive()
-        assert kernels.LAUNCHES["compact"] == n_threads * n_each
+        with profiling.recording() as rec:
+            threads = [threading.Thread(target=lambda: [
+                kernels.count_launch("compact", i) for i in range(n_each)])
+                for _ in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+                assert not t.is_alive()
+        assert rec.total("kernel.compact") == n_threads * n_each
         assert len(kernels.RECORD["compact"]) == n_threads * n_each
     finally:
         sys.setswitchinterval(old)
         kernels.RECORD = None
-        kernels.LAUNCHES.update(saved)
 
 
 def test_probe_entry_points_run_on_cpu(capsys):

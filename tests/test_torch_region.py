@@ -30,6 +30,7 @@ from upcc_tpu_torch.ops import coords as TC
 from upcc_tpu_torch.ops import family as TF
 from upcc_tpu_torch.ops import sparse as TS
 from upcc_tpu_torch.ops.sparse import SparseTensor as TST
+from upcc_tpu_torch.utils import profiling
 from upcc_tpu_torch.weights import ABL_REGION5_CONFIG, params_from_jax
 
 torch.set_num_threads(2)
@@ -252,12 +253,12 @@ def test_region_codec_matches_jax(codecs, frame):
     k and to JAX's, bpp within 1%, D1 and Y-PSNR within 0.1 dB."""
     jc, tc = codecs
     q = (0.5, 0.5)
-    prepared = TF.PREPARE_CALLS
     tc.debug, tc.debug_info = True, []
-    tdata = tc.compress(frame, q, block_size=128)
-    tout = tc.decompress(tdata)
+    with profiling.recording() as rec:
+        tdata = tc.compress(frame, q, block_size=128)
+        tout = tc.decompress(tdata)
     tc.debug = False
-    assert TF.PREPARE_CALLS == prepared
+    assert rec.total("taps.prepared") == 0
     enc = [d for d in tc.debug_info if d["side"] == "enc"]
     dec = [d for d in tc.debug_info if d["side"] == "dec"]
     assert len(enc) == len(dec) == 2

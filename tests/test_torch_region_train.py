@@ -36,6 +36,7 @@ from upcc_tpu_torch.ops import family as F
 from upcc_tpu_torch.ops.sparse import SparseTensor as TST
 from upcc_tpu_torch.training.loss import Loss as TLoss
 from upcc_tpu_torch.training.train_step import TrainStep
+from upcc_tpu_torch.utils import profiling
 from upcc_tpu_torch.weights import _flatten, params_from_jax
 from test_torch_train import (GRAD_RTOL, LOSS, LOSS_RTOL, N_TAP_LAYERS,
                               Noise, T, inject)
@@ -140,11 +141,11 @@ def port_step(batch, jax_step):
         with torch.no_grad():
             out = tm(x, T(q), T(lam), training=True,
                      root_nbrs=t_roots(keys, CFG))
-        before = F.PREPARE_CALLS
         del calls[:]
-        total, parts = step.loss(x, T(q), T(lam), t_roots(keys, CFG))
-        total.backward()
-        prepares = F.PREPARE_CALLS - before
+        with profiling.recording() as rec:
+            total, parts = step.loss(x, T(q), T(lam), t_roots(keys, CFG))
+            total.backward()
+        prepares = rec.total("taps.prepared")
     finally:
         mp.undo()
     return {"out": out, "total": float(total.detach()),

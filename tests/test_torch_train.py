@@ -51,6 +51,7 @@ from upcc_tpu_torch.training.train_step import (TrainStep,
                                                 clip_by_global_norm,
                                                 make_lr_schedule,
                                                 make_optimizer)
+from upcc_tpu_torch.utils import profiling
 from upcc_tpu_torch.weights import _flatten, params_from_jax, \
     save_flax_msgpack
 
@@ -269,10 +270,10 @@ def test_training_forward_maps_and_prepares(batch, jax_step, monkeypatch):
         calls.append((flat.shape[0], idx, ok, self_map))
         return gemm(flat, idx, ok, w, self_map)
     monkeypatch.setattr(F, "_gemm", record)
-    before = F.PREPARE_CALLS
     step = TrainStep(tm, TLoss(LOSS, 2), {})
-    step(TST(T(keys), T(feats)), T(q), T(lam), t_roots(keys, CFG))
-    assert F.PREPARE_CALLS - before == 2 * N_TAP_LAYERS - 1
+    with profiling.recording() as rec:
+        step(TST(T(keys), T(feats)), T(q), T(lam), t_roots(keys, CFG))
+    assert rec.total("taps.prepared") == 2 * N_TAP_LAYERS - 1
     assert len(calls) == N_TAP_LAYERS
     mirror = torch.arange(26, -1, -1)
     cross = 0

@@ -142,23 +142,18 @@ def test_wgrad_splits_cover_rows(rows, n_tiles):
     assert F.wgrad_splits(40_000, 1008, 132)[1] == 1
 
 
-def _assemble(flat, idx, ok, dacc, plan, pairs, chunk, splits, row_lists):
+def _assemble(flat, idx, ok, dacc, plan, pairs, chunk, splits):
     """dW's listed blocks as the kernel composes them: per tile and split,
-    the split's range of the tap's row list (or of all rows, the missed
-    ones zeroed), summed over splits in order."""
+    the split's range of the tap's row list, summed over splits in
+    order."""
     n_src, bk, bn = flat.shape[0], plan.bk, plan.bn
     lists, ends = F.wgrad_row_lists(ok)
     pad_f = torch.nn.functional.pad(flat, (0, bk))
     pad_d = torch.nn.functional.pad(dacc, (0, bn))
     out = torch.full((plan.n_blocks, bk, bn), float("nan"))
     for tap, k0, nblk, c0, p0, c1, p1, _ in plan.wgrad_tiles(pairs).tolist():
-        if row_lists:
-            base, count = _tap_range(ends, tap, ok.shape[0])
-            rows_t = lists[1 + base:1 + base + count].long() \
-                - tap * ok.shape[0]
-        else:
-            count = ok.shape[0]
-            rows_t = torch.arange(count)
+        base, count = _tap_range(ends, tap, ok.shape[0])
+        rows_t = lists[1 + base:1 + base + count].long() - tap * ok.shape[0]
         for c, p in ((c0, p0), (c1, p1))[:nblk]:
             total = torch.zeros((bk, bn))
             for s in range(splits):
@@ -166,7 +161,7 @@ def _assemble(flat, idx, ok, dacc, plan, pairs, chunk, splits, row_lists):
                 if len(r) == 0:
                     break
                 src = idx[r, tap].long().clamp(max=n_src - 1)
-                a = pad_f[src, k0:k0 + bk] * ok[r, tap, None].float()
+                a = pad_f[src, k0:k0 + bk]
                 total = total + a.T @ pad_d[r, c * bn:(c + 1) * bn]
             out[p] = total
     return out
@@ -192,8 +187,8 @@ def test_wgrad_decomposition_matches_plain_and_jax(kind, ks, cin, cout):
     n_tiles = len(plan.wgrad_tiles())
     chunk, splits = F.wgrad_splits(rows, n_tiles, 1000, min_chunk=64)
     assert (chunk, splits) == (64, 5)
-    for pairs, row_lists in ((True, True), (False, True), (True, False)):
+    for pairs in (True, False):
         got = _assemble(T(flat), T(idx), T(ok), T(dacc), plan, pairs, chunk,
-                        splits, row_lists)
+                        splits)
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
         np.testing.assert_allclose(got, jref, rtol=1e-5, atol=1e-4)

@@ -38,9 +38,12 @@ conv prepared its weights; the stream's containers are byte-identical to
 ``compress()`` of the same frame; on the card, kernels K1 (tap_gemm), K2
 (topk_mask) and K3 (compact) each launch in every frame, and every K2 and
 K3 call of the vox11 warm-up (recorded through ``kernels.RECORD``) equals
-its plain version bit for bit.  The vox11 frame's encode and decode groups
-are printed with their blocks, points, ``k`` per level and, on the card,
-each group's peak memory run alone.
+its plain version bit for bit.  The launch and preparation gates read the
+tracer's counters ``kernel.<name>`` and ``taps.prepared``: the timed
+frames run inside ``profiling.recording()``, whose spans add about 0.4% to
+a frame on the H100.  The vox11 frame's encode and decode groups are
+printed with their blocks, points, ``k`` per level and, on the card, each
+group's peak memory run alone.
 
 Needs a CUDA device unless ``--device cpu`` is given: without one it
 raises and never carries on on the CPU.
@@ -67,9 +70,9 @@ from .codec import bitstream
 from .codec.codec import Codec, _chunk_decode_groups
 from .data.synthetic import surface_cloud
 from .models.unified import UnifiedModel
-from .ops import family as F
 from .ops.sparse import SparseTensor, compact, compact_plain
 from .ops.topk import topk_mask, topk_mask_plain
+from .utils import profiling
 from .weights import FLAGSHIP_CONFIG, flagship_config, load_weights
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -144,8 +147,9 @@ def check_launches(launches, what, per_frame=None, frames=1):
                                  f"{frames} x {per_frame} expected")
 
 
-def frame_launches():
-    return {name: kernels.LAUNCHES[name] for name in FRAME_KERNELS}
+def frame_launches(rec):
+    """The launches of K1, K2 and K3 in a record, over all its frames."""
+    return {name: rec.total("kernel." + name) for name in FRAME_KERNELS}
 
 
 def warm_up(codec, frame, block, record=False):
@@ -247,16 +251,15 @@ def timed_reps(codec, frame, block, reps, what, per_frame=None):
     times, launches = [], None
     on_card = codec.device.type == "cuda"
     for _ in range(reps):
-        kernels.reset_launches()
-        prepared = F.PREPARE_CALLS
-        t0 = time.perf_counter()
-        data = codec.compress(frame, Q, block_size=block)
-        rec = codec.decompress(data)
-        _sync(codec.device)
-        times.append(time.perf_counter() - t0)
-        launches = frame_launches()
+        with profiling.recording() as counts:
+            t0 = time.perf_counter()
+            data = codec.compress(frame, Q, block_size=block)
+            rec = codec.decompress(data)
+            _sync(codec.device)
+            times.append(time.perf_counter() - t0)
+        launches = frame_launches(counts)
         check_count(data, rec, what)
-        if F.PREPARE_CALLS != prepared:
+        if counts.total("taps.prepared"):
             raise AssertionError(f"{what}: a conv prepared its weights "
                                  f"during the frame")
         if on_card:
@@ -334,14 +337,14 @@ def run(device="cuda", width=FLAGSHIP_WIDTH, vox11_points=1_200_000,
     frames = [frame10] * stream_frames
     sweeps = []
     for _ in range(stream_sweeps):
-        kernels.reset_launches()
-        prepared = F.PREPARE_CALLS
-        t0 = time.perf_counter()
-        blobs = list(codec.compress_stream(iter(frames), Q, block_size=1024))
-        outs = list(codec.decompress_stream(iter(blobs)))
-        _sync(device)
-        sweeps.append((time.perf_counter() - t0) / stream_frames)
-        if len(outs) != stream_frames or F.PREPARE_CALLS != prepared:
+        with profiling.recording() as counts:
+            t0 = time.perf_counter()
+            blobs = list(codec.compress_stream(iter(frames), Q,
+                                               block_size=1024))
+            outs = list(codec.decompress_stream(iter(blobs)))
+            _sync(device)
+            sweeps.append((time.perf_counter() - t0) / stream_frames)
+        if len(outs) != stream_frames or counts.total("taps.prepared"):
             raise AssertionError("stream: frames lost or weights prepared")
         for blob, rec in zip(blobs, outs):
             if blob != data10:
@@ -349,7 +352,8 @@ def run(device="cuda", width=FLAGSHIP_WIDTH, vox11_points=1_200_000,
                                      "compress() of the same frame")
             check_count(blob, rec, "stream")
         if on_card:
-            check_launches(frame_launches(), "stream", l10, stream_frames)
+            check_launches(frame_launches(counts), "stream", l10,
+                           stream_frames)
     gates.append(f"stream: {stream_frames} containers byte-identical to "
                  f"compress(), decoded = sum k[2]")
     if on_card:

@@ -9,9 +9,10 @@
 // for the [64 x BN] blocks of the [T, K_in, K_out] stack that the layer's
 // prepared plan lists (ops/tapplan.py), and no other: every unlisted block
 // is a structural zero of the layer's tap table.  flat bf16 [n_src, K_in],
-// idx int32 / ok uint8 [rows, T], dacc bf16 [rows, K_out] (the f32 output
-// gradient rounded to bf16), dW f32 [n_blocks, 64, BN], K by N in list
-// order.  A gathered-A GEMM whose reduction runs over rows, f32 sums.
+// idx int32 [rows, T] (ok enters through the row lists below), dacc bf16
+// [rows, K_out] (the f32 output gradient rounded to bf16), dW f32
+// [n_blocks, 64, BN], K by N in list order.  A gathered-A GEMM whose
+// reduction runs over rows, f32 sums.
 //
 // What bounds it: on the training calls, bytes (reading flat and dacc
 // once is 20-50 times the operations' time at the bf16 peak).  The kernel
@@ -28,8 +29,7 @@
 // * per-tap row lists (ops/family.py::wgrad_row_lists: the rows with
 //   ok[r, k], ascending, built on the device once per map by a few PyTorch
 //   operations): a tile reads only the rows its tap reaches, so no product
-//   is an exact zero (with no lists it walks every row and zero-fills the
-//   ones the tap misses);
+//   is an exact zero;
 // * a ring of 4 stages in dynamic shared memory, each ROWS list entries
 //   (64, or 32 for a pair, so that two blocks share an SM): A, the gathered
 //   rows' 128 bytes of the K block, and B, the same rows of dacc as
@@ -78,12 +78,11 @@ constexpr int kTile = 8;    // int32 fields of one wgrad tile
 struct Params {
   const __nv_bfloat16* flat;  // [n_src, k_in]
   const int32_t* idx;         // [rows, taps]
-  const uint8_t* ok;          // [rows, taps]
   const __nv_bfloat16* dacc;  // [rows, k_out]
   // [n_tiles, 8]: tap, first K, blocks (1 or 2), column 0, list position
   // 0, column 1, list position 1, unused
   const int32_t* tiles;
-  // per-tap row lists or null, tap-major (ops/family.py::wgrad_row_lists):
+  // per-tap row lists, tap-major (ops/family.py::wgrad_row_lists):
   // ends, the running count of ok^T flattened; entry i of tap t is row
   // lists[1 + ends[t rows - 1] + i] - t rows
   const int32_t* lists;
@@ -137,31 +136,26 @@ tap_wgrad_kernel(const Params p) {
   const int64_t col0 = (int64_t)tl[3] * BN;
   const int64_t col1 = nblk > 1 ? (int64_t)tl[5] * BN : 0;
   const int split = (int)blockIdx.y;
-  const int64_t base = p.lists && tap > 0 ? p.ends[tap * p.rows - 1] : 0;
-  const int64_t count =
-      p.lists ? p.ends[(tap + 1) * p.rows - 1] - base : p.rows;
+  const int64_t base = tap > 0 ? p.ends[tap * p.rows - 1] : 0;
+  const int64_t count = p.ends[(tap + 1) * p.rows - 1] - base;
   const int64_t beg = (int64_t)split * p.chunk;
   const int64_t end = count < beg + p.chunk ? count : beg + p.chunk;
   const int64_t n = end > beg ? end - beg : 0;  // this split's entries
   const int n_st = (int)((n + kRows - 1) / kRows);
   const bool mma_on = wg < nblk;  // uniform over the warpgroup
 
-  // list entries [first, first + kSeg) of the split: their rows (-1 past
-  // the end: dacc zero-filled) and source rows (-1: flat zero-filled)
+  // list entries [first, first + kSeg) of the split: their rows and
+  // source rows (both -1 past the end: dacc and flat zero-filled)
   auto load_seg = [&](int64_t first) {
     for (int e = tid; e < kSeg; e += NT) {
       const int64_t i = first + e;
       int32_t row = -1, src = -1;
       if (i < n) {
-        const int64_t li = beg + i;
-        const int64_t r =
-            p.lists ? (int64_t)p.lists[1 + base + li] - tap * p.rows : li;
+        const int64_t r = (int64_t)p.lists[1 + base + beg + i] - tap * p.rows;
+        int64_t s = p.idx[r * p.taps + tap];
+        s = s < p.n_src - 1 ? s : p.n_src - 1;
         row = (int32_t)r;
-        if (p.lists || p.ok[r * p.taps + tap]) {
-          int64_t s = p.idx[r * p.taps + tap];
-          s = s < p.n_src - 1 ? s : p.n_src - 1;
-          src = (int32_t)(s < 0 ? 0 : s);
-        }
+        src = (int32_t)(s < 0 ? 0 : s);
       }
       s_row[e] = row;
       s_src[e] = src;
@@ -333,10 +327,10 @@ cudaError_t launch(const Params& p, int64_t n_tiles, cudaStream_t stream) {
 }  // namespace
 
 // pairs: 1 for tiles of up to two column blocks (two consumer warpgroups),
-// 0 for single-column tiles; lists and ends both null for no row lists
+// 0 for single-column tiles
 extern "C" int upcc_tap_wgrad(const void* flat, int64_t n_src, int64_t k_in,
-                              const void* idx, const void* ok, int64_t rows,
-                              int64_t taps, const void* dacc, int64_t k_out,
+                              const void* idx, int64_t rows, int64_t taps,
+                              const void* dacc, int64_t k_out,
                               const void* tiles, int64_t n_tiles,
                               int64_t pairs, const void* lists,
                               const void* ends, int64_t n_blocks, int64_t bn,
@@ -348,13 +342,12 @@ extern "C" int upcc_tap_wgrad(const void* flat, int64_t n_src, int64_t k_in,
       (bn != 32 && bn != 64 && bn != 128) || (pairs != 0 && pairs != 1) ||
       chunk < 64 || chunk % 64 || splits < 1 || splits > 65535 ||
       (splits - 1) * chunk >= rows || n_tiles > 0x7fffffffLL ||
-      n_blocks > 0x7fffffffLL || (lists == nullptr) != (ends == nullptr) ||
+      n_blocks > 0x7fffffffLL || lists == nullptr || ends == nullptr ||
       (splits > 1 && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.flat = (const __nv_bfloat16*)flat;
   p.idx = (const int32_t*)idx;
-  p.ok = (const uint8_t*)ok;
   p.dacc = (const __nv_bfloat16*)dacc;
   p.tiles = (const int32_t*)tiles;
   p.lists = (const int32_t*)lists;

@@ -11,11 +11,12 @@ an edited source always rebuilds.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 
-``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
-card; ``reset_launches()`` zeroes them.  When ``RECORD`` is a dict, every
-wrapper also appends its inputs under its kernel's name (``chip_smoke.py``
-uses this to hold each kernel against its plain version at the shapes the
-codec's main path gives it).
+Every wrapper that launches a kernel on the card adds 1 to the tracer's
+counter ``kernel.<name>`` (``utils/profiling.py``: it counts inside
+``profiling.recording()`` or under ``torch.profiler``, per frame or step).
+When ``RECORD`` is a dict, the wrapper also appends its inputs under its
+kernel's name (``chip_smoke.py`` uses this to hold each kernel against its
+plain version at the shapes the codec's main path gives it).
 """
 
 import ctypes
@@ -27,6 +28,8 @@ import threading
 import time
 
 import torch
+
+from .utils import profiling
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.environ.get("UPCC_TORCH_BUILD") or os.path.join(
@@ -55,10 +58,10 @@ _SIGNATURES = {
                           _P, _I64, _I64, _P, _P],
     },
     "tap_wgrad": {
-        # flat, n_src, k_in, idx, ok, rows, taps, dacc, k_out, wgrad tiles,
+        # flat, n_src, k_in, idx, rows, taps, dacc, k_out, wgrad tiles,
         # n_tiles, pairs, row lists, list ends, n_blocks, bn, chunk, splits,
         # partials, tickets, out, stream
-        "upcc_tap_wgrad": [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _I64, _P,
+        "upcc_tap_wgrad": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P,
                            _I64, _I64, _P, _P, _I64, _I64, _I64, _I64, _P,
                            _P, _P, _P],
     },
@@ -91,29 +94,23 @@ _SIGNATURES = {
     },
 }
 
-LAUNCHES = {name: 0 for name in SOURCES}
 RECORD = None
 BUILD_LOG = {}
 _libs = {}
 _limits = {}
-# the codec runs groups and frames on worker threads: the counts and the
+# the codec runs groups and frames on worker threads: the record and the
 # first-use build are shared by them
-_count_lock = threading.Lock()
+_record_lock = threading.Lock()
 _build_lock = threading.Lock()
-
-
-def reset_launches():
-    with _count_lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
 
 
 def count_launch(name, *inputs):
     """Called by a wrapper right where it launches its kernel."""
-    with _count_lock:
-        LAUNCHES[name] += 1
-        if RECORD is not None:
-            RECORD.setdefault(name, []).append(inputs)
+    profiling.count("kernel." + name, 1)
+    record = RECORD
+    if record is not None:
+        with _record_lock:
+            record.setdefault(name, []).append(inputs)
 
 
 def _nvcc():

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import profiling
 from . import coords as C
 from . import tapplan
 from .scan import cumsum_i32
@@ -518,20 +519,17 @@ def _dense_taps(weights, kind, kernel_size):
                                 weights.dtype)
 
 
-# calls of prepare_taps so far: a run that must not prepare weights per call
-# (the codec after update()) reads it before and after
-PREPARE_CALLS = 0
-
-
 def prepare_taps(weights, kind, kernel_size, compute_dtype=None):
     """Prepare a layer's parameter [K^3, cin, cout] for ``tap_gemm`` at one
     call shape (``kind``: "conv", "down", "transpose" or "grand_" + the
     ``grand_apply`` mode): operands rounded to the compute dtype, packed
     into the nonzero blocks the static table lists
     (``ops/tapplan.py``).  Done once per layer by ``Codec.update()``; the
-    convs below also take the raw parameter and prepare it per call."""
-    global PREPARE_CALLS
-    PREPARE_CALLS += 1
+    convs below also take the raw parameter and prepare it per call.  Each
+    preparation adds 1 to the tracer's counter ``taps.prepared``, which a
+    run that must not prepare weights per call (the codec after
+    ``update()``) reads."""
+    profiling.count("taps.prepared", 1)
     compute_dtype = compute_dtype or default_compute_dtype(weights.device)
     dense = _dense_taps(weights, kind, kernel_size).to(compute_dtype)
     return tapplan.plan_from_dense(
@@ -725,15 +723,13 @@ def _arange(n, device):
 _tickets = {}
 
 
-def tap_wgrad(flat, nbr_idx, nbr_ok, dacc, plan, pairs=True, row_lists=True,
-              per_sm=WGRAD_PER_SM):
+def tap_wgrad(flat, nbr_idx, nbr_ok, dacc, plan):
     """The listed blocks of dW, f32 [n_blocks, bk, bn] (K by N, the plan's
     list order): kernel K1w on the card, ``tap_wgrad_plain`` on the CPU.
-    On CUDA tensors flat and dacc must be bf16.  ``pairs``: tiles of up to
-    two column blocks (else one); ``row_lists``: walk each tap's row list
-    (else every row, zero-filling the rows the tap misses); ``per_sm``: the
-    split target of ``wgrad_splits``.  None of the three changes which
-    products are summed; the defaults are the kernel's timed choice."""
+    On CUDA tensors flat and dacc must be bf16.  The kernel walks each
+    tap's row list (``wgrad_row_lists``) in tiles of up to two column
+    blocks of one (tap, K block) pair (one where the plan has a single
+    column block), split by ``wgrad_splits``."""
     if not flat.is_cuda:
         return plan.blocks_of(tap_wgrad_plain(flat, nbr_idx, nbr_ok, dacc))
     rows, taps = nbr_idx.shape
@@ -759,11 +755,11 @@ def tap_wgrad(flat, nbr_idx, nbr_ok, dacc, plan, pairs=True, row_lists=True,
         return out
     if rows == 0:
         return out.zero_()
-    pairs = pairs and plan.n_col > 1  # one column block: nothing to pair
+    pairs = plan.n_col > 1  # one column block: nothing to pair
     tiles = plan.wgrad_tiles(pairs)
     n_tiles = tiles.shape[0]
-    chunk, splits = wgrad_splits(rows, n_tiles, _sm_count(dev), per_sm)
-    lists, ends = wgrad_row_lists(nbr_ok) if row_lists else (None, None)
+    chunk, splits = wgrad_splits(rows, n_tiles, _sm_count(dev))
+    lists, ends = wgrad_row_lists(nbr_ok)
     stream = kernels.stream_ptr(flat)
     part = tickets = None
     if splits > 1:
@@ -773,9 +769,9 @@ def tap_wgrad(flat, nbr_idx, nbr_ok, dacc, plan, pairs=True, row_lists=True,
     ptr = lambda t: 0 if t is None else t.data_ptr()
     kernels.count_launch("tap_wgrad", flat, nbr_idx, nbr_ok, dacc, plan)
     kernels.check(kernels.lib("tap_wgrad").upcc_tap_wgrad(
-        flat.data_ptr(), n_src, k_in, nbr_idx.data_ptr(), nbr_ok.data_ptr(),
-        rows, taps, dacc.data_ptr(), plan.k_out, tiles.data_ptr(), n_tiles,
-        int(bool(pairs)), ptr(lists), ptr(ends), nb, plan.bn, chunk, splits,
+        flat.data_ptr(), n_src, k_in, nbr_idx.data_ptr(), rows, taps,
+        dacc.data_ptr(), plan.k_out, tiles.data_ptr(), n_tiles, int(pairs),
+        lists.data_ptr(), ends.data_ptr(), nb, plan.bn, chunk, splits,
         ptr(part), ptr(tickets), out.data_ptr(), stream), "tap_wgrad")
     return out
 
@@ -820,9 +816,8 @@ class TrainTaps:
         return self.plan.k_out
 
     def plan_t(self):
-        global PREPARE_CALLS
         if self._plan_t is None:
-            PREPARE_CALLS += 1
+            profiling.count("taps.prepared", 1)
             self._plan_t = tapplan.transposed_plan(
                 self.dense.detach().to(self.compute_dtype), self.struct,
                 self.cin, self.cout)
@@ -833,8 +828,7 @@ class TrainTaps:
 def prepare_train_taps(weights, kind, kernel_size, compute_dtype=None):
     """``prepare_taps`` for a training step: the same plan, plus the dense
     stack kept attached to ``weights`` (once per layer and step)."""
-    global PREPARE_CALLS
-    PREPARE_CALLS += 1
+    profiling.count("taps.prepared", 1)
     compute_dtype = compute_dtype or default_compute_dtype(weights.device)
     dense = _dense_taps(weights, kind, kernel_size).float()
     struct = _tap_table_np(kind, kernel_size) >= 0

@@ -59,6 +59,10 @@ class Record:
         self.spans = []
         self.counts = {}
 
+    def total(self, name):
+        """The counter ``name`` summed over every unit of the record."""
+        return sum(c.get(name, 0) for c in self.counts.values())
+
 
 _current = contextvars.ContextVar("upcc_span", default=None)  # (id, unit)
 _span_ids = itertools.count(1)
