@@ -41,7 +41,7 @@ and exits non-zero:
      once recorded by the tracer, once recording every kernel call's
      inputs), then block 512 (an 8-block group); gated: encoder/decoder
      bit-exact, the decoded count equal to the transmitted k, the launches
-     per frame (K1 19, K2 3, K3 3; 61 / 0 / 9 on the coded path) and no
+     per frame (K1 19, K2 3, K3 4; 61 / 0 / 10 on the coded path) and no
      conv preparing its weights during the frame (update() did);
   4. every recorded main-path kernel call against its plain version (K1:
      the prepared weights the codec used against the dense stack built from
@@ -54,7 +54,7 @@ and exits non-zero:
   6. the lossless path at full width: compress(geom="coded") -> decompress
      at block 1024 and block 512; every stage's context bins equal on both
      sides, the decoded voxel set equal to the input's, deterministic,
-     launches 61 / 0 / 9 a frame; K3 on one coded frame's 9 recorded calls
+     launches 61 / 0 / 10 a frame; K3 on one coded frame's 10 recorded calls
      against its plain version (``[k3 coded]``);
   7. compress_multi at three q's and compress_stream / decompress_stream
      at depth 2 over three frames, byte-identical to the sequential calls;
@@ -72,7 +72,7 @@ and exits non-zero:
      configs/ablation/abl_region5.yaml on a seeded init (no committed
      weights), the same frame at q=(0.5, 0.5), block 1024: encoder/decoder
      bit-exact, deterministic, decoded count = sum of k[2], no conv
-     preparing weights during the frame, launches per frame 19/3/3; every
+     preparing weights during the frame, launches per frame 19/3/4; every
      K1, K2 and K3 call of the region decode against its plain version;
      candidate counts per level and peak memory printed;
  10. ``[eval]``: the evaluation driver (upcc_tpu_torch.evaluate) on the
@@ -120,8 +120,8 @@ and exits non-zero:
  15. ``[parallel codec]``: the flagship codec with devices=["cuda:0",
      "cuda:0"] on the vox10 frame at block 512 with MAX_GROUP 3 (restored
      after): bytes, decode and compress_multi at two q's equal to the
-     sequential codec's, launches 19/3/3 a group (K1 8 an encode and 11 a
-     decode pass).  Phases 12-15 print their seconds;
+     sequential codec's, launches 19/3/4 a group (K1 8 and K3 1 an encode,
+     K1 11 and K3 3 a decode pass).  Phases 12-15 print their seconds;
  16. ``[oracle]``: the geometry-attribution driver
      (upcc_tpu_torch.diag_geometry) on the flagship uncut with the
      committed weights, on the 8 largest 128^3 cubes of [train]'s frame
@@ -781,9 +781,10 @@ def check_compact_calls(calls, tag, profile=True):
 
 
 CODEC_KERNELS = ("tap_gemm", "topk_mask", "compact")
-# launches per frame (encode + decode), top-k and coded geometry
-TOPK_LAUNCHES = {"tap_gemm": 19, "topk_mask": 3, "compact": 3}
-CODED_LAUNCHES = {"tap_gemm": 61, "topk_mask": 0, "compact": 9}
+# launches per frame (encode + decode), top-k and coded geometry; the
+# encoder's voxelization is one K3 call a group
+TOPK_LAUNCHES = {"tap_gemm": 19, "topk_mask": 3, "compact": 4}
+CODED_LAUNCHES = {"tap_gemm": 61, "topk_mask": 0, "compact": 10}
 PROBE_KERNELS = ("tile_tapconv", "window_gather_sum")
 
 
@@ -1082,8 +1083,9 @@ def jax_stream_report(codec, f32_codec=None):
 REGION_SEED = 5
 # launches per frame: the same layer structure as the flagship's (K1: g_a
 # 4, h_a 3, h_s 1 on encode; h_s 1, g_s's 5^3 conv, three transposes and
-# six head convs on decode), every level outside grandparent layout
-REGION_LAUNCHES = {"tap_gemm": 19, "topk_mask": 3, "compact": 3}
+# six head convs on decode; K3: the voxelization, three prunes), every
+# level outside grandparent layout
+REGION_LAUNCHES = {"tap_gemm": 19, "topk_mask": 3, "compact": 4}
 
 
 def run_region(frame, q):
@@ -2081,7 +2083,7 @@ def run_parallel_codec(frame):
     """[parallel codec]: the flagship codec with devices=["cuda:0",
     "cuda:0"] (two workers, one replica) on the vox10 frame at block 512,
     MAX_GROUP lowered to 3 for the phase: bytes, decode and compress_multi
-    equal to the sequential codec's; 19/3/3 launches a device pass."""
+    equal to the sequential codec's; 19/3/4 launches a group."""
     from upcc_tpu_torch.codec import codec as codec_mod
     model = load_weights(UnifiedModel(FLAGSHIP_CONFIG), WEIGHTS)
     seq = Codec(model, device="cuda")
@@ -2112,13 +2114,14 @@ def run_parallel_codec(frame):
     finally:
         codec_mod.MAX_GROUP = saved
     want = {"tap_gemm": 8 * n_enc + 11 * n_dec, "topk_mask": 3 * n_dec,
-            "compact": 3 * n_dec}
+            "compact": n_enc + 3 * n_dec}
     print(f"[parallel codec] devices ['cuda:0', 'cuda:0'] (2 workers, "
           f"{len(par._replicas)} replica), block 512, MAX_GROUP "
           f"{PARALLEL_CODEC_GROUP}: {n_enc} encode and {n_dec} decode "
           f"groups; compress + decompress {t_par:.2f} s (sequential codec, "
           f"two q's and a decode: {t_seq:.2f} s); launches {launches} "
-          f"(19/3/3 a group: K1 8 an encode and 11 a decode pass); "
+          f"(19/3/4 a group: K1 8 and K3 1 an encode, K1 11 and K3 3 "
+          f"a decode pass); "
           f"{len(data)} bytes", flush=True)
     assert data == ref, "parallel codec: bytes differ from sequential"
     assert np.array_equal(rec, rec_ref), "parallel codec: decode differs"

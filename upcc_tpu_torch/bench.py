@@ -227,15 +227,15 @@ def group_table(codec, frame, block, data):
         _sync(codec.device)
         return torch.cuda.max_memory_allocated(codec.device) / 2 ** 30
 
-    for group, origins in groups:
-        blks = blocks[at:at + len(group)]
-        at += len(group)
+    for group in groups:
+        blks = blocks[at:at + len(group.origins)]
+        at += len(group.origins)
         rows.append({
-            "side": "encode", "blocks": len(group),
-            "points": int(sum(len(x) for x, _ in group)),
+            "side": "encode", "blocks": len(group.origins),
+            "points": int(group.keys.shape[0]),
             "k": [int(sum(int(b["k"][i]) for b in blks)) for i in range(3)],
             "peak_gib": peak(lambda: codec._encode_at_q(
-                codec._encode_shared(group, origins, levels), qv))})
+                codec._encode_shared(group, levels), qv))})
     for blks in _chunk_decode_groups(blocks):
         k = [int(sum(int(b["k"][i]) for b in blks)) for i in range(3)]
         rows.append({"side": "decode", "blocks": len(blks), "points": k[2],

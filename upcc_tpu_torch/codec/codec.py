@@ -1,8 +1,10 @@
 """Point-cloud codec: host orchestration around the model's device methods.
 
-compress: partition the cloud into blocks; per group of up to 63 blocks
-(carried in the key batch bits, one device pass) voxelize on the host,
-run g_a and h_a on the device, code z with the factorized bottleneck's
+compress: upload the cloud once and sort it on the device by block and
+Morton code (``_partition_blocks``); per group of up to 63 blocks (carried
+in the key batch bits, one device pass) drop duplicate voxels on the
+device and copy the keys back for the host level counts, run g_a and h_a
+on the device, code z with the factorized bottleneck's
 rANS tables, derive the Gaussian parameters through the decoder's own
 params graph, code y with Gaussian rANS and the y coordinates with the
 octree coder, and write the v6 container.  decompress inverts it: octree
@@ -32,6 +34,7 @@ import math
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,8 +47,8 @@ from ..models.entropy.bottleneck import build_cdf_tables
 from ..models.layers import _TapConv
 from ..ops import coords as C
 from ..ops import family as F
-from ..ops.sparse import SparseTensor, voxelize_host_np
-from ..parallel.block_parallel import parallel_map_blocks, shard_points_by_block
+from ..ops.sparse import SparseTensor, compact
+from ..parallel.block_parallel import parallel_map_blocks
 from ..utils import profiling
 from . import bitstream, color_affine, color_resid, refine
 
@@ -55,6 +58,8 @@ ENC_GROUP_PTS = 800_000
 DEC_GROUP_L0 = 262_144
 DEC_GROUP_L1 = 524_288
 CODEC_MAX_BATCH = 64
+LOCAL_BITS = 30  # block-local Morton codes: 3 x 10 bits (block_size <= 1024)
+LEX_BLOCKS = 2048  # blocks an axis below which the lexicographic index fits
 
 
 def _bucket(n, lo=512):
@@ -98,6 +103,28 @@ def _z_hs_caps(n_s16, n_z):
     z_caps = (_bucket(n_s16), _bucket(n_z))
     hs_caps = (_bucket(8 * n_z), _bucket(64 * n_z))
     return z_caps, hs_caps
+
+
+class EncodeGroup(NamedTuple):
+    """Blocks that share one batched encode pass: their points sorted by
+    key ``(rank of the block in the group << BATCH_SHIFT) | block-local
+    Morton code``, duplicates still in, on the device; and each block's
+    origin."""
+    keys: torch.Tensor   # int64 [n]
+    rgb: torch.Tensor    # f32 [n, 3]
+    origins: list        # (x, y, z) ints a block
+
+    @property
+    def cap(self):
+        return _bucket(self.keys.shape[0])
+
+
+def _to_device(keys, rgb, device):
+    """A group's keys and colors moved to ``device`` in one copy."""
+    packed = torch.cat([keys.view(torch.int32).view(-1, 2),
+                        rgb.view(torch.int32)], 1).to(device)
+    return (packed[:, :2].reshape(-1).view(torch.int64),
+            packed[:, 2:].contiguous().view(torch.float32))
 
 
 def _device_key(device):
@@ -232,8 +259,8 @@ class Codec:
                     pointcloud, block_size, scaling_factor)
             qv = np.asarray(q, np.float32).reshape(1, 2)
             results = self._map_groups(
-                lambda c, item: c._encode_at_q(
-                    c._encode_shared(item[0], item[1], levels), qv, geom),
+                lambda c, grp: c._encode_at_q(
+                    c._encode_shared(grp, levels), qv, geom),
                 groups)
             blocks = [b for r in results for b in r]
             return bitstream.write_container(path, blocks, scaling_factor)
@@ -250,13 +277,13 @@ class Codec:
         stages, whose context logits read the dequantized latents)."""
         self._check_encode(block_size, geom)
         with profiling.frame("codec.compress"):
-            groups, levels = self._partition_blocks(pointcloud, block_size,
-                                                    scaling_factor)
+            with self._stage("enc.partition"):
+                groups, levels = self._partition_blocks(
+                    pointcloud, block_size, scaling_factor)
             # group i runs on the same device (round-robin) in every pass,
             # so each q pass finds its group's shared state there
             shareds = self._map_groups(
-                lambda c, item: c._encode_shared(item[0], item[1], levels),
-                groups)
+                lambda c, grp: c._encode_shared(grp, levels), groups)
             out = []
             for q in qs:
                 qv = np.asarray(q, np.float32).reshape(1, 2)
@@ -389,48 +416,99 @@ class Codec:
         return keeps_dev, caps
 
     def _partition_blocks(self, pointcloud, block_size, scaling_factor):
-        """Sort points into per-block groups of up to MAX_GROUP blocks;
-        returns ([(blocks, origins), ...], octree levels)."""
+        """Upload the cloud once and sort its points on the device by
+        (block, block-local Morton code), stably, so that the first
+        occurrence of a voxel comes first; form groups of up to MAX_GROUP
+        blocks and ENC_GROUP_PTS points from the blocks' point counts.
+        Returns ([EncodeGroup, ...], octree levels)."""
         pts = np.asarray(pointcloud)
-        xyz = pts[:, :3].astype(np.float64)
+        if pts.dtype not in (np.float32, np.float64):
+            pts = pts.astype(np.float64)
+        profiling.count("enc.partition.h2d_bytes", pts.nbytes)
+        pts = self._dev(pts)
+        xyz = pts[:, :3]
         if scaling_factor != 1.0:
-            xyz = np.round(xyz / scaling_factor)
-        xyz = xyz.astype(np.int32)
-        rgb = pts[:, 3:6].astype(np.float32)
+            # a device divisor: CUDA divides by a host scalar through its
+            # reciprocal, which can round differently from numpy
+            sf = torch.tensor(scaling_factor, dtype=torch.float64,
+                              device=self.device)
+            xyz = torch.round(xyz.to(torch.float64) / sf)
+        xyz = xyz.to(torch.int32)
+        mins = xyz.amin(0)
+        d = (xyz - mins).to(torch.int64)
+        bidx = torch.div(d, block_size, rounding_mode="floor")
+        morton = C.morton_encode(d - bidx * block_size)
+        head = torch.cat([mins.to(torch.int64), bidx.amax(0)]).tolist()
+        mins, nb = head[:3], [b + 1 for b in head[3:]]
+        lex = max(nb) < LEX_BLOCKS
+        if lex:
+            # the lexicographic block index, below 2^33
+            bid = (bidx[:, 0] * nb[1] + bidx[:, 1]) * nb[2] + bidx[:, 2]
+        else:
+            # the block's dense rank in lexicographic order, below N
+            corners, bid = torch.unique(bidx, dim=0, return_inverse=True)
+        skeys, order = torch.sort((bid << LOCAL_BITS) | morton, stable=True)
+        ids, counts = torch.unique_consecutive(skeys >> LOCAL_BITS,
+                                               return_counts=True)
+        if lex:
+            corners = torch.stack([ids // (nb[1] * nb[2]),
+                                   ids // nb[2] % nb[1], ids % nb[2]], 1)
+        nblk = ids.shape[0]
+        host = torch.cat([corners.reshape(-1), counts]).tolist()
+        corners, sizes = host[:3 * nblk], host[3 * nblk:]
+        # each point's block ordinal, then its key within its group
+        blk = torch.repeat_interleave(
+            torch.arange(nblk, device=self.device), counts,
+            output_size=xyz.shape[0])
+        skeys = skeys & ((1 << LOCAL_BITS) - 1)
+        rgb = pts[:, 3:6].to(torch.float32)[order]
 
-        order, bounds, mins = shard_points_by_block(xyz, block_size)
-        xyz, rgb = xyz[order], rgb[order]
+        def group(j0, j1, s, e):
+            keys = ((blk[s:e] - j0) << C.BATCH_SHIFT) | skeys[s:e]
+            return EncodeGroup(keys, rgb[s:e], [
+                tuple(mins[a] + corners[3 * j + a] * block_size
+                      for a in range(3)) for j in range(j0, j1)])
 
         levels = max(1, int(math.ceil(math.log2(max(block_size // 8, 2)))))
         groups = []
-        group, group_origins, gpts = [], [], 0
-        for s, e in zip(bounds[:-1], bounds[1:]):
-            bxyz = xyz[s:e]
-            if group and (len(group) == MAX_GROUP
-                          or gpts + (e - s) > ENC_GROUP_PTS):
-                groups.append((group, group_origins))
-                group, group_origins, gpts = [], [], 0
-            origin = mins + ((bxyz[0] - mins) // block_size) * block_size
-            group.append((bxyz - origin, rgb[s:e]))
-            group_origins.append(tuple(int(v) for v in origin))
-            gpts += e - s
-        if group:
-            groups.append((group, group_origins))
+        first = start = end = 0
+        for j, n in enumerate(sizes):
+            if j > first and (j - first == MAX_GROUP
+                              or end - start + n > ENC_GROUP_PTS):
+                groups.append(group(first, j, start, end))
+                first, start = j, end
+            end += n
+        groups.append(group(first, nblk, start, end))
         return groups, levels
 
-    def _encode_shared(self, group, origins, levels):
+    def _voxelize_group(self, group):
+        """The group's voxels on this codec's device: duplicates dropped
+        (first occurrence wins) by K3, keys sentinel-padded and colors
+        zero-padded to ``group.cap``, colors on the 8-bit grid.  Returns
+        (SparseTensor, the keys copied to the host)."""
+        keys, rgb = group.keys, group.rgb
+        # the color table's device: self.device may lack the CUDA index
+        if keys.device != self._color_levels.device:
+            keys, rgb = _to_device(keys, rgb, self.device)
+        keep = torch.ones_like(keys, dtype=torch.bool)
+        keep[1:] = keys[1:] != keys[:-1]
+        keys, rgb = compact(keys, keep, rgb, out_capacity=group.cap)
+        colors8 = torch.clamp(torch.round(rgb * 255.0), 0, 255).to(
+            torch.uint8)
+        feats = self._color_levels[colors8.long()]
+        keys_host = keys.cpu().numpy()
+        profiling.count("enc.voxelize.d2h_bytes", keys_host.nbytes)
+        profiling.count("enc.voxelize.voxels",
+                        np.searchsorted(keys_host, C.SENTINEL))
+        return SparseTensor(keys=keys, feats=feats), keys_host
+
+    def _encode_shared(self, group, levels):
         """q-independent half of the encode: voxelize, host level counts and
         root maps, g_a and h_a on the device."""
         m = self.model
-        g = len(group)
-        batch = np.concatenate([np.full(len(x), i, np.int32)
-                                for i, (x, _) in enumerate(group)])
-        local = np.concatenate([x for x, _ in group])
-        colors = np.concatenate([c for _, c in group])
-        cap = _bucket(len(local))
+        g = len(group.origins)
         with self._stage("enc.voxelize"):
-            keys_host, feats_host = voxelize_host_np(batch, local, colors,
-                                                     cap)
+            x, keys_host = self._voxelize_group(group)
 
         # exact host downsample chain (s2..s32) sizes every device pyramid;
         # its s16 and s32 levels are g_a's and h_a's roots
@@ -440,13 +518,7 @@ class Codec:
             _, ga_rn_idx, ga_rn_ok = F.host_self_map(lvl_keys[3],
                                                      ga_caps4[3])
 
-        # colors travel on the 8-bit grid (padding rows are zero)
-        colors_u8 = np.clip(np.round(feats_host * 255.0), 0, 255
-                            ).astype(np.uint8)
-        feats = colors_u8.astype(np.float32) / np.float32(255.0)
         with self._stage("enc.analysis"):
-            x = SparseTensor(keys=self._dev(keys_host),
-                             feats=self._dev(feats))
             enc = m.ga_device(x, (self._dev(ga_rn_idx),
                                   self._dev(ga_rn_ok)),
                               ga_caps4, max_batch=CODEC_MAX_BATCH)
@@ -471,7 +543,7 @@ class Codec:
         n_z = len(lvl_keys[4])
         z_batches = (lvl_keys[4] >> C.BATCH_SHIFT).astype(np.int32)
         nz_b = np.bincount(z_batches, minlength=g)[:g]
-        return {"levels": levels, "origins": origins, "enc": enc,
+        return {"levels": levels, "origins": group.origins, "enc": enc,
                 "hyp": hyp, "z_rn": z_rn, "y_keys_np": y_keys_np, "yv": yv,
                 "n_y": n_y, "ycap": ycap, "z_caps": z_caps,
                 # exact level sets the coded-occupancy mode selects: the
