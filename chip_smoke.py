@@ -136,11 +136,13 @@ and exits non-zero:
      logits +-1, the kept set decided by the tie-fill by position) equals
      topk_mask_plain bit for bit; printed: peak memory, each level's
      ranking precision and D1 per configuration;
- 17. ``[twins]``: the four native host libraries (rANS, octree, occupancy,
-     voxelize) loaded; on the JAX fixture's frame (6,000 points, q = (0.5,
-     0.5), block 128) in geom="topk" and "coded", with every library
-     forced off the containers are byte-identical and decode to the same
-     points through the Python twins.  Phases 16-17 print their seconds;
+ 17. ``[twins]``: the five native host libraries (rANS, its table decoder,
+     octree, occupancy, voxelize) loaded; on the JAX fixture's frame
+     (6,000 points, q = (0.5, 0.5), block 128) in geom="topk" and "coded",
+     the table decoder decodes every rANS stream of the decode to the
+     values of ``rans.cpp``'s decoder, and with every library forced off
+     the containers are byte-identical and decode to the same points
+     through the Python twins.  Phases 16-17 print their seconds;
  18. ``[bench]``: ``upcc_tpu_torch.bench`` in process, the root bench.py's
      protocol in full (``--bench`` the same): its lines
      under ``[bench]`` (the three frames/s values, rep times, bpp, the
@@ -2269,14 +2271,43 @@ def run_oracle(smi):
     torch.cuda.empty_cache()
 
 
+def table_decoder_streams(codec, data):
+    """Decode ``data``, and hold the table decoder on each of its rANS
+    streams against ``rans.cpp``'s decoder. -> (streams, symbols, symbols
+    one table entry resolved)."""
+    from upcc_tpu_torch.coding import rans
+    streams = []
+    real = rans.decode_with_indexes
+
+    def spy(*args):
+        streams.append(args)
+        return real(*args)
+    rans.decode_with_indexes = spy
+    try:
+        codec.decompress(data)
+    finally:
+        rans.decode_with_indexes = real
+    symbols = direct = 0
+    for args in streams:
+        rc, vals = rans.search_decode(*args)
+        trc, tvals, hits = rans.table_decode(*args)
+        assert rc == trc == 0, f"decode codes {rc} / {trc}"
+        assert np.array_equal(tvals, vals), \
+            "the table decoder decoded other values than rans.cpp's"
+        symbols += len(vals)
+        direct += hits
+    return len(streams), symbols, direct
+
+
 def run_twins(codec):
-    """Phase 17: the four native host libraries loaded, and with each
-    forced off (its Python or numpy twin instead) the containers of the
-    JAX fixture's frame byte-identical in both geometry modes and decoded
-    to the same points."""
+    """Phase 17: the five native host libraries loaded, the table decoder
+    equal to ``rans.cpp``'s decoder on every rANS stream of the decodes,
+    and with each library forced off (its Python or numpy twin instead)
+    the containers of the JAX fixture's frame byte-identical in both
+    geometry modes and decoded to the same points."""
     from upcc_tpu_torch.coding import occ, octree, rans
-    libs = [(rans, "_lib", rans._load), (octree, "_lib", octree._load),
-            (occ, "_lib", occ._load),
+    libs = [(rans, "_lib", rans._load), (rans, "_lut_lib", rans._load_lut),
+            (octree, "_lib", octree._load), (occ, "_lib", occ._load),
             (sparse, "_vox_lib", sparse._load_voxelize)]
     for mod, name, load in libs:
         assert load(), f"{mod.__name__}: the native library did not load"
@@ -2286,6 +2317,13 @@ def run_twins(codec):
     for geom in ("topk", "coded"):
         data = codec.compress(frame, TWIN_Q, block_size=TWIN_BLOCK, geom=geom)
         rec = codec.decompress(data)
+        streams, symbols, direct = table_decoder_streams(codec, data)
+        assert streams > 0 and symbols > 0, \
+            "the decode ran no stream through rans.decode_with_indexes"
+        print(f"[twins] {geom}: rans_lut decoded {streams} streams, "
+              f"{symbols} symbols, as rans.cpp's decoder; one entry "
+              f"resolved {direct} ({100 * direct / max(symbols, 1):.2f}%)",
+              flush=True)
         for mod, name, _ in libs:
             setattr(mod, name, False)
         try:

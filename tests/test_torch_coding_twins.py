@@ -3,7 +3,8 @@ each twin's bytes against the port's native coder and against the JAX
 package's twin on the same seeded inputs, each decode back to the input,
 the fallback taken when the build fails (one warning carrying the build's
 error), and a CPU codec at N=16 writing the native containers with all
-four twins forced, in ``geom="topk"`` and ``geom="coded"``."""
+four twins forced (the rANS twin in place of both rANS libraries), in
+``geom="topk"`` and ``geom="coded"``."""
 
 import numpy as np
 import pytest
@@ -44,12 +45,14 @@ CFG = {
         "quantization_offset": True,
     },
 }
-# (module, its library global): the four native host libraries
-NATIVE = [(TRANS, "_lib"), (TOCT, "_lib"), (TOCC, "_lib"), (TS, "_vox_lib")]
+# (module, its library global, its loader): the five native host libraries
+NATIVE = [(TRANS, "_lib", TRANS._load), (TRANS, "_lut_lib", TRANS._load_lut),
+          (TOCT, "_lib", TOCT._load), (TOCC, "_lib", TOCC._load),
+          (TS, "_vox_lib", TS._load_voxelize)]
 
 
 def force_twins(monkeypatch):
-    for mod, name in NATIVE:
+    for mod, name, _ in NATIVE:
         monkeypatch.setattr(mod, name, False)
 
 
@@ -226,14 +229,13 @@ def test_voxelize_without_dedup_keeps_every_row():
 
 # -- the fallback -------------------------------------------------------------
 
-@pytest.mark.parametrize("mod,name", NATIVE,
-                         ids=["rans", "octree", "occ", "voxelize"])
-def test_failed_build_warns_and_falls_back(monkeypatch, mod, name):
+@pytest.mark.parametrize("mod,name,load", NATIVE,
+                         ids=["rans", "rans_lut", "octree", "occ", "voxelize"])
+def test_failed_build_warns_and_falls_back(monkeypatch, mod, name, load):
     def fail(src, lib_name):
         raise RuntimeError(f"g++ failed for {src}:\nfatal: no {lib_name}")
     monkeypatch.setattr(build, "load_native", fail)
     monkeypatch.setattr(mod, name, None)
-    load = TS._load_voxelize if mod is TS else mod._load
     with pytest.warns(RuntimeWarning, match="g\\+\\+ failed") as rec:
         assert load() is False
     assert "fatal: no" in str(rec[0].message)
@@ -293,7 +295,7 @@ def test_codec_with_all_twins_writes_the_native_bytes(codec, monkeypatch,
     q = (0.5, 0.5)
     data = codec.compress(frame, q, block_size=64, geom=geom)
     rec = codec.decompress(data)
-    assert all(mod.__dict__[name] for mod, name in NATIVE)
+    assert all(mod.__dict__[name] for mod, name, _ in NATIVE)
     force_twins(monkeypatch)
     assert codec.compress(frame, q, block_size=64, geom=geom) == data
     np.testing.assert_array_equal(codec.decompress(data), rec)

@@ -6,6 +6,7 @@ loader and the file CLI."""
 import os
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from upcc_tpu.models.unified import UnifiedModel as JModel
 from upcc_tpu.ops.sparse import from_points
 from upcc_tpu_torch import compress as cli
 from upcc_tpu_torch.codec import color_affine as TCA
+from upcc_tpu_torch.codec import codec as TC
 from upcc_tpu_torch.codec import color_resid as TCR
 from upcc_tpu_torch.codec import io as TIO
 from upcc_tpu_torch.codec import raht as TRAHT
@@ -115,6 +117,46 @@ def test_streams_match_sequential_calls(tc, frame):
     for a, b in zip(tc.decompress_stream(iter(seq), depth=2), recs):
         np.testing.assert_array_equal(a, b)
     assert list(tc.compress_stream([], q)) == []
+
+
+def test_stream_model_passes_run_one_at_a_time(tc, frame):
+    """The chained streams keep four frames' workers busy, but one model
+    pass at a time runs on the device (each pass under the device's lock),
+    and the bytes and points stay the sequential calls'."""
+    names = ("ga_device", "hyper_analyze_device", "decode_params_device",
+             "encode_symbols_device", "decode_reconstruct_device")
+    guard = threading.Lock()
+    running, most, threads = [0], [0], set()
+
+    def spy(real):
+        def pass_(*args, **kwargs):
+            with guard:
+                running[0] += 1
+                most[0] = max(most[0], running[0])
+                threads.add(threading.get_ident())
+            try:
+                time.sleep(0.005)  # widen the window two passes could share
+                return real(*args, **kwargs)
+            finally:
+                with guard:
+                    running[0] -= 1
+        return pass_
+
+    for name in names:
+        setattr(tc.model, name, spy(getattr(tc.model, name)))
+    frames = [frame, frame[:1500], frame[700:], frame[::2]]
+    q = (0.5, 0.5)
+    try:
+        recs = list(tc.decompress_stream(
+            tc.compress_stream(frames, q, block_size=64, depth=2), depth=2))
+    finally:
+        for name in names:
+            delattr(tc.model, name)
+    assert most[0] == 1 and len(threads) > 2
+    assert tc._pass is TC._pass_lock(torch.device("cpu"))
+    for f, rec in zip(frames, recs):
+        np.testing.assert_array_equal(
+            rec, tc.decompress(tc.compress(f, q, block_size=64)))
 
 
 def test_threaded_group_map_matches_sequential(tc, frame):

@@ -301,6 +301,7 @@ def test_coder_counts_equal_the_streams(codec, frame):
         for what in ("symbols", "bytes"):
             assert dec[f"coder.{kind}.dec.{what}"] \
                 == enc[f"coder.{kind}.enc.{what}"]
+    assert 0 < dec["coder.rans.dec.direct"] <= dec["coder.rans.dec.symbols"]
     coder_spans = [s for s in rec.spans if s.name.startswith("coder.")]
     assert Counter(s.name for s in coder_spans) == {
         "coder.octree.dec": len(blocks), "coder.rans.dec": 2 * len(blocks)}

@@ -31,6 +31,7 @@ import contextlib
 import contextvars
 import copy
 import math
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -136,6 +137,21 @@ def _device_key(device):
     return dev
 
 
+# One thread at a time runs a device's model passes.  Each torch op releases
+# the interpreter lock around its dispatch, so two threads that launch at
+# once (the stream pipeline's workers) hand it back and forth on every op,
+# and each pass runs several times slower than alone; under this lock the
+# interpreter lock changes hands once a pass.  A pass takes it after its
+# uploads and drops it before its results are copied back, so no thread
+# holds it while the host waits on the device.
+_PASS_LOCKS = {}
+
+
+def _pass_lock(device):
+    """The lock that serializes model passes on ``device``."""
+    return _PASS_LOCKS.setdefault(_device_key(device), threading.Lock())
+
+
 class Codec:
     """``Codec(model, device="cuda", devices=None)``; call ``update()``
     once, then ``compress(pointcloud, q, path=None, block_size=1024)`` and
@@ -157,6 +173,7 @@ class Codec:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.model = model.to(self.device).eval()
+        self._pass = _pass_lock(self.device)
         self.tables = None
         self.prepared_bytes = 0
         # debug=True records each block's symbols and entropy parameters
@@ -190,7 +207,13 @@ class Codec:
                 + time.perf_counter() - t0
 
     def _dev(self, x):
-        return torch.as_tensor(np.ascontiguousarray(x)).to(self.device)
+        """``x`` on the device.  A CUDA upload is queued from pinned memory:
+        from pageable memory it would wait until the stream drains, the
+        passes of the pipeline's other threads included."""
+        t = torch.as_tensor(np.ascontiguousarray(x))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def update(self):
         """Freeze the entropy models into integer CDF tables and prepare
@@ -220,6 +243,7 @@ class Codec:
         profile off)."""
         rep = copy.copy(self)
         rep.device, rep.devices = device, None
+        rep._pass = _pass_lock(device)
         rep.debug = rep.profile = False
         rep.model = copy.deepcopy(self.model).to(device).eval()
         rep.update()
@@ -363,9 +387,11 @@ class Codec:
     def _refine_stage(self, y_keys, y_sym, dec, keeps, caps, lvl):
         """Stage ``lvl``: levels below it select by the supplied keep
         masks, level ``lvl`` emits the uint8 context bins of its logits."""
-        logits = self.model.decode_refine_device(
-            y_keys, y_sym, dec, ext_keep=tuple(keeps), num_levels=lvl + 1,
-            prune_caps=tuple(caps) + (8,) * (3 - len(caps)))
+        with self._pass:
+            logits = self.model.decode_refine_device(
+                y_keys, y_sym, dec, ext_keep=tuple(keeps),
+                num_levels=lvl + 1,
+                prune_caps=tuple(caps) + (8,) * (3 - len(caps)))
         if self.debug and not bool(torch.isfinite(logits).all()):
             raise FloatingPointError(f"non-finite occupancy logits at "
                                      f"stage {lvl}")
@@ -374,9 +400,10 @@ class Codec:
     def _coded_final(self, y_keys, y_sym, dec, keeps, caps):
         """Final coded-mode pass: all three selections external, the color
         head on the exact decoded voxel set."""
-        return self.model.decode_refine_device(
-            y_keys, y_sym, dec, ext_keep=tuple(keeps), num_levels=3,
-            prune_caps=tuple(caps), emit_last_logits=False)
+        with self._pass:
+            return self.model.decode_refine_device(
+                y_keys, y_sym, dec, ext_keep=tuple(keeps), num_levels=3,
+                prune_caps=tuple(caps), emit_last_logits=False)
 
     def _occ_stages(self, side, y_keys, y_sym, dec, ycap, parents0, g,
                     get_bits):
@@ -519,9 +546,10 @@ class Codec:
                                                      ga_caps4[3])
 
         with self._stage("enc.analysis"):
-            enc = m.ga_device(x, (self._dev(ga_rn_idx),
-                                  self._dev(ga_rn_ok)),
-                              ga_caps4, max_batch=CODEC_MAX_BATCH)
+            ga_rn = (self._dev(ga_rn_idx), self._dev(ga_rn_ok))
+            with self._pass:
+                enc = m.ga_device(x, ga_rn, ga_caps4,
+                                  max_batch=CODEC_MAX_BATCH)
 
         # y is the exact s8 downsample of the input keys
         n_y = len(lvl_keys[2])
@@ -534,8 +562,9 @@ class Codec:
         with self._stage("enc.hyper"):
             _, z_rn_idx, z_rn_ok = F.host_self_map(lvl_keys[4], z_caps[1])
             z_rn = (self._dev(z_rn_idx), self._dev(z_rn_ok))
-            hyp = m.hyper_analyze_device(enc["y_keys"], enc["y_feats"], z_rn,
-                                         z_caps)
+            with self._pass:
+                hyp = m.hyper_analyze_device(enc["y_keys"], enc["y_feats"],
+                                             z_rn, z_caps)
 
         yv = y_keys_np != C.SENTINEL
         y_batches = (y_keys_np[yv] >> C.BATCH_SHIFT).astype(np.int32)
@@ -569,11 +598,14 @@ class Codec:
         y_keys_np, yv = sh["y_keys_np"], sh["yv"]
         y_ofs, z_ofs = sh["y_ofs"], sh["z_ofs"]
         with self._stage("enc.params"):
-            dec = m.decode_params_device(enc["y_keys"], hyp["z_sym"],
-                                         self._dev(qv), sh["z_rn"],
-                                         sh["z_caps"], sh["hs_caps"])
+            q_dev = self._dev(qv)
+            with self._pass:
+                dec = m.decode_params_device(enc["y_keys"], hyp["z_sym"],
+                                             q_dev, sh["z_rn"],
+                                             sh["z_caps"], sh["hs_caps"])
         with self._stage("enc.symbols"):
-            y_sym = m.encode_symbols_device(enc["y_feats"], dec)
+            with self._pass:
+                y_sym = m.encode_symbols_device(enc["y_feats"], dec)
             z_vals = hyp["z_sym"][:n_z].cpu().numpy()
             y_vals = y_sym[:n_y].cpu().numpy()
             y_idx = dec["indexes"][:n_y].cpu().numpy().astype(np.int32)
@@ -766,10 +798,13 @@ class Codec:
 
         with self._stage("dec.params"):
             _, z_rn_idx, z_rn_ok = F.host_self_map(lvl[1], zcap)
-            dec = m.decode_params_device(
-                y_keys, self._dev(z_sym),
-                self._dev(np.asarray(blks[0]["q"], np.float32).reshape(1, 2)),
-                (self._dev(z_rn_idx), self._dev(z_rn_ok)), z_caps, hs_caps)
+            z_dev = self._dev(z_sym)
+            q_dev = self._dev(np.asarray(blks[0]["q"], np.float32)
+                              .reshape(1, 2))
+            z_rn = (self._dev(z_rn_idx), self._dev(z_rn_ok))
+            with self._pass:
+                dec = m.decode_params_device(y_keys, z_dev, q_dev, z_rn,
+                                             z_caps, hs_caps)
             y_idx = dec["indexes"][:n_y].cpu().numpy().astype(np.int32)
 
         cb = m.entropy_model.C_bottleneck
@@ -835,8 +870,10 @@ class Codec:
                 for gen, kept in m.g_s.prune_counts(n_y_b, k):
                     profiling.count("gs.generated", gen)
                     profiling.count("gs.kept", kept)
-            st = m.decode_reconstruct_device(y_keys, self._dev(y_sym), dec,
-                                             self._dev(k), prune_caps)
+            y_dev, k_dev = self._dev(y_sym), self._dev(k)
+            with self._pass:
+                st = m.decode_reconstruct_device(y_keys, y_dev, dec, k_dev,
+                                                 prune_caps)
         with self._stage("dec.fetch"):
             return self._fetch_points(blks, st)
 

@@ -1,7 +1,13 @@
 """rANS entropy coder: ctypes binding to the native C++ coder (``csrc/rans.cpp``,
 a byte-identical copy of the JAX package's coder, so both packages write
 the same bytes for the same symbols), with a pure-Python twin of the same
-algorithm that writes the same bytes where the library cannot be built."""
+algorithm that writes the same bytes where the library cannot be built.
+
+Streams are decoded by ``csrc/rans_lut.cpp``: the same arithmetic, with
+each symbol found through a small per-row bucket table in place of
+``rans.cpp``'s binary search over the CDF row.  ``rans.cpp``'s decoder
+stays as the yardstick (``search_decode``) that the table decoder is
+held against; where either library cannot be built, its twin runs."""
 
 import ctypes
 import os
@@ -14,7 +20,15 @@ from .build import try_native
 _PROB_BITS = 16
 _RANS_L = 1 << 23
 _src = os.path.join(os.path.dirname(__file__), "csrc", "rans.cpp")
+_lut_src = os.path.join(os.path.dirname(__file__), "csrc", "rans_lut.cpp")
 _lib = None
+_lut_lib = None
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+# upcc_rans_decode's arguments: bytes, their count, indexes, n, cdfs, rows,
+# row stride, row lengths, offsets, values out
+_DECODE_ARGS = [_u8p, ctypes.c_int64, _i32p, ctypes.c_int64, _i32p,
+                ctypes.c_int64, ctypes.c_int64, _i32p, _i32p, _i32p]
 
 
 def _load():
@@ -23,18 +37,27 @@ def _load():
     if _lib is None:
         lib = try_native(_src, "rans")
         if lib:
-            i32p = ctypes.POINTER(ctypes.c_int32)
-            u8p = ctypes.POINTER(ctypes.c_uint8)
             lib.upcc_rans_encode.restype = ctypes.c_int64
             lib.upcc_rans_encode.argtypes = [
-                i32p, i32p, ctypes.c_int64, i32p, ctypes.c_int64,
-                ctypes.c_int64, i32p, i32p, u8p, ctypes.c_int64]
+                _i32p, _i32p, ctypes.c_int64, _i32p, ctypes.c_int64,
+                ctypes.c_int64, _i32p, _i32p, _u8p, ctypes.c_int64]
             lib.upcc_rans_decode.restype = ctypes.c_int64
-            lib.upcc_rans_decode.argtypes = [
-                u8p, ctypes.c_int64, i32p, ctypes.c_int64, i32p,
-                ctypes.c_int64, ctypes.c_int64, i32p, i32p, i32p]
+            lib.upcc_rans_decode.argtypes = _DECODE_ARGS
         _lib = lib
     return _lib
+
+
+def _load_lut():
+    """The table decoder's native library, or False (then the twin runs)."""
+    global _lut_lib
+    if _lut_lib is None:
+        lib = try_native(_lut_src, "rans_lut")
+        if lib:
+            lib.upcc_rans_lut_decode.restype = ctypes.c_int64
+            lib.upcc_rans_lut_decode.argtypes = [
+                *_DECODE_ARGS, ctypes.POINTER(ctypes.c_int64)]
+        _lut_lib = lib
+    return _lut_lib
 
 
 def _asi32(a):
@@ -51,13 +74,11 @@ def encode_with_indexes(values, indexes, cdfs, cdf_lengths, offsets):
         return _py_encode(values, indexes, cdfs, cdf_lengths, offsets)
     cap = max(values.size * 8 + 1024, 1 << 16)
     out = np.empty(cap, np.uint8)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
     n = lib.upcc_rans_encode(
-        values.ctypes.data_as(i32p), indexes.ctypes.data_as(i32p),
-        values.size, cdfs.ctypes.data_as(i32p), cdfs.shape[0],
-        cdfs.shape[1], cdf_lengths.ctypes.data_as(i32p),
-        offsets.ctypes.data_as(i32p), out.ctypes.data_as(u8p), cap)
+        values.ctypes.data_as(_i32p), indexes.ctypes.data_as(_i32p),
+        values.size, cdfs.ctypes.data_as(_i32p), cdfs.shape[0],
+        cdfs.shape[1], cdf_lengths.ctypes.data_as(_i32p),
+        offsets.ctypes.data_as(_i32p), out.ctypes.data_as(_u8p), cap)
     if n < 0:
         raise RuntimeError("rANS encode buffer overflow")
     return out[:n].tobytes()
@@ -65,25 +86,62 @@ def encode_with_indexes(values, indexes, cdfs, cdf_lengths, offsets):
 
 @profiling.coder("rans.dec")
 def decode_with_indexes(data, indexes, cdfs, cdf_lengths, offsets):
-    """Inverse of encode_with_indexes. -> int32 values [N]."""
-    indexes = _asi32(indexes)
-    cdfs, cdf_lengths, offsets = _asi32(cdfs), _asi32(cdf_lengths), _asi32(offsets)
-    buf = np.ascontiguousarray(np.frombuffer(data, np.uint8))
-    lib = _load()
+    """Inverse of encode_with_indexes. -> int32 values [N].  Counts
+    ``coder.rans.dec.direct``, the symbols one table entry resolved."""
+    lib = _load_lut()
     if not lib:
-        return _py_decode(buf, indexes, cdfs, cdf_lengths, offsets)
-    out = np.empty(indexes.size, np.int32)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
-    rc = lib.upcc_rans_decode(
-        buf.ctypes.data_as(u8p), buf.size,
-        indexes.ctypes.data_as(i32p), indexes.size,
-        cdfs.ctypes.data_as(i32p), cdfs.shape[0], cdfs.shape[1],
-        cdf_lengths.ctypes.data_as(i32p), offsets.ctypes.data_as(i32p),
-        out.ctypes.data_as(i32p))
+        return _py_decode(*_decode_inputs(data, indexes, cdfs, cdf_lengths,
+                                          offsets))
+    direct = ctypes.c_int64(0)
+    rc, out = _native_decode(lib.upcc_rans_lut_decode, np.empty, data,
+                             indexes, cdfs, cdf_lengths, offsets,
+                             ctypes.byref(direct))
     if rc != 0:
         raise RuntimeError(f"rANS decode failed: {rc}")
+    profiling.count("coder.rans.dec.direct", direct.value)
     return out
+
+
+def table_decode(data, indexes, cdfs, cdf_lengths, offsets):
+    """``rans_lut.cpp``'s decoder, as ``decode_with_indexes`` runs it. ->
+    (its return code, the values [N], the symbols one table entry
+    resolved); on a nonzero code the values from the failing symbol on
+    are 0."""
+    direct = ctypes.c_int64(0)
+    rc, out = _native_decode(_load_lut().upcc_rans_lut_decode, np.zeros,
+                             data, indexes, cdfs, cdf_lengths, offsets,
+                             ctypes.byref(direct))
+    return rc, out, direct.value
+
+
+def search_decode(data, indexes, cdfs, cdf_lengths, offsets):
+    """``rans.cpp``'s decoder (a binary search over the CDF row a symbol),
+    the yardstick of ``table_decode``. -> (its return code, the values),
+    as ``table_decode``'s."""
+    return _native_decode(_load().upcc_rans_decode, np.zeros, data, indexes,
+                          cdfs, cdf_lengths, offsets)
+
+
+def _decode_inputs(data, indexes, cdfs, cdf_lengths, offsets):
+    return (np.ascontiguousarray(np.frombuffer(data, np.uint8)),
+            _asi32(indexes), _asi32(cdfs), _asi32(cdf_lengths),
+            _asi32(offsets))
+
+
+def _native_decode(fn, alloc, data, indexes, cdfs, cdf_lengths, offsets,
+                   *extra):
+    """``fn`` on the arrays, its values in ``alloc(n, np.int32)``: the
+    decode path takes ``np.empty``, which leaves a frame's 16 MB of values
+    untouched until the decoder writes them once."""
+    buf, indexes, cdfs, cdf_lengths, offsets = _decode_inputs(
+        data, indexes, cdfs, cdf_lengths, offsets)
+    out = alloc(indexes.size, np.int32)
+    rc = fn(buf.ctypes.data_as(_u8p), buf.size,
+            indexes.ctypes.data_as(_i32p), indexes.size,
+            cdfs.ctypes.data_as(_i32p), cdfs.shape[0], cdfs.shape[1],
+            cdf_lengths.ctypes.data_as(_i32p), offsets.ctypes.data_as(_i32p),
+            out.ctypes.data_as(_i32p), *extra)
+    return rc, out
 
 
 def pmf_to_quantized_cdf(pmf, tail_mass, precision=_PROB_BITS):
